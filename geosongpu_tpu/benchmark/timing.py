@@ -22,7 +22,7 @@ class BenchmarkRecord:
     """One run's timing record (analog of benchmark/benchmark.py:8-28)."""
 
     experiment: str
-    backend: str                      # "tpu" | "cpu" | ...
+    backend: str                      # "gpu" | "cpu" | ...
     grid: Dict[str, int]              # {npx, npz}
     setup_time_s: float = 0.0
     compile_time_s: float = 0.0       # warm-up (JIT) time, excluded from steps
@@ -131,7 +131,7 @@ def report(records: List[BenchmarkRecord]) -> str:
         if r.energy:
             lines.append(
                 f"  energy: {r.energy.get('total_kwh', 0.0):.6f} kWh "
-                f"(tpu {r.energy.get('tpu_kwh', 0.0):.6f}, "
+                f"(gpu {r.energy.get('gpu_kwh', 0.0):.6f}, "
                 f"cpu {r.energy.get('cpu_kwh', 0.0):.6f})")
         if r.phase_tree:
             pt = r.phase_tree

@@ -33,8 +33,8 @@ extended equiangular chart,
   weights are re-evaluated from chart geometry inside the corner
   regions (bit-identical elsewhere), so values and metrics agree.
 
-Everything is static data applied OUTSIDE the Pallas kernels, right
-after the halo fills - hot-loop shapes and kernel bodies are untouched,
+Everything is static data applied right after the halo fills -
+hot-loop shapes and stencil bodies are untouched,
 and the corrections are tiny dense contractions on 4 corner patches.
 
 Reference analog: the corner handling the reference's DSL dycore
@@ -327,8 +327,7 @@ def build_chart_tables(n: int, h: int) -> ChartCornerTables:
     # local blocks; non-target rows are ZERO, which in deviation form is
     # an exact passthrough - the appliers then update each corner with a
     # single static-slice dynamic-update-slice (a gather/scatter with
-    # advanced indices copies the whole padded array: measured +56
-    # ms/step at c192)
+    # advanced indices copies the whole padded array)
     W = h + 2
     WW = W * W
     T_sc = sc_dw_x.shape[2]
@@ -472,6 +471,7 @@ def _apply_scalar(a, tables, direction, gate, fsel):
     row an exact passthrough (so per-device gating just scales the
     weights).  gate: optional [4] traced 0/1 factors; fsel: optional
     traced face index when the local face axis holds a single face."""
+    import jax
     import jax.numpy as jnp
 
     h = tables.h
@@ -496,7 +496,8 @@ def _apply_scalar(a, tables, direction, gate, fsel):
         dev = samp[:, None] - base[:, :, None]  # [F, WW, PP, ...]
         corr = jnp.einsum(Wd, [0, 1, 2],
                           dev, list(range(dev.ndim)),
-                          [0, 1] + list(range(3, dev.ndim)))
+                          [0, 1] + list(range(3, dev.ndim)),
+                          precision=jax.lax.Precision.HIGHEST)
         out = out.at[:, ysq, xsq].set((base + corr).reshape(blk.shape))
     return out
 
@@ -505,6 +506,7 @@ def _apply_agrid(ua, va, pu, pv, tables, gate, fsel):
     """Core A-grid corner reconstruction (see ChartCornerTables): one
     static-slice block update per corner per component; non-target rows
     of the dense square keep their current values via the static mask."""
+    import jax
     import jax.numpy as jnp
 
     h = tables.h
@@ -529,7 +531,8 @@ def _apply_agrid(ua, va, pu, pv, tables, gate, fsel):
             Wd = jnp.take(Wd, fsel, axis=0)[None]
         rec = jnp.einsum(Wd, [0, 1, 2],
                          samp, [0, 2] + list(range(3, samp.ndim + 1)),
-                         [0, 1] + list(range(3, samp.ndim + 1)))
+                         [0, 1] + list(range(3, samp.ndim + 1)),
+                         precision=jax.lax.Precision.HIGHEST)
         mask = jnp.asarray(tables.st_mask[cid])
         if gate is not None:
             mask = mask & (gate[cid] > 0)

@@ -1,4 +1,4 @@
-"""Typed configuration tree for the TPU dycore + experiments.
+"""Typed configuration tree for the dycore + experiments.
 
 Replaces the reference's layered config sprawl - experiments.yaml + env-var
 vault + dataclass presets rendered to shell `export` blocks + .rc/.nml file
@@ -28,8 +28,8 @@ class DycoreConfig:
                             # 6=unlimited 4th-order
     hord_mt: int = 0        # momentum/vorticity-flux PPM variant; 0 =
                             # follow `hord`.  FV3 production runs hord_mt=6
-                            # (unlimited - the limiter is pure VPU flops and
-                            # momentum needs no monotonicity); gated by the
+                            # (unlimited - momentum needs no
+                            # monotonicity); gated by the
                             # stability suite + climatology smoke
     hord_tm: int = 0        # delp/pt/w/delz PPM variant; 0 = follow `hord`
     kord: int = 8           # vertical remap PPM variant (monotone)
@@ -43,35 +43,6 @@ class DycoreConfig:
                             # sub-cycles tracers every acoustic substep
     q_split: int = 2        # tracer subcycles per remap interval (Courant
                             # control for the accumulated fluxes)
-    pallas_microphysics: bool = False  # fused Pallas TPU kernel for the
-                                       # GFDL-lite microphysics column chain
-    pallas_dycore: bool = False  # run the d_sw substep chain as fused
-                                 # Pallas kernels (dycore/sw_pallas.py);
-                                 # same math, VMEM-fused scheduling
-    pallas_kt: int = 0           # vertical tile for the dycore kernels
-                                 # (0 = whole column per block)
-    pallas_jt: int = 0           # J-row tile for the dycore kernels:
-                                 # 0 = auto (whole face when it fits VMEM,
-                                 # halo-overlapped row bands otherwise -
-                                 # what lets c192-L72 run the fused path);
-                                 # >0 = explicit rows per tile
-    remap_band: int = 6   # banded vertical remap half-width in layers.
-                          # Measured Lagrangian deformation (|omga| dt /
-                          # delp) is ~0.01 layers through c48 spin-up and
-                          # O(1) layer in mature storm-track eddies; the
-                          # HeldSuarez check gates BOTH the measured
-                          # deformation (< band/2) and banded-vs-full
-                          # agreement on a coordinate displaced by
-                          # band/2 layers, every run.
-                          # On TPU this selects the fused Pallas kernel
-                          # (ops/pallas/remap.py): exact while Lagrangian
-                          # deformation stays within the band (gated every
-                          # run in the HS task check), O(K*band) work.
-                          # Off-TPU the full O(K^2) overlap form is used
-                          # regardless (the jnp banded form materializes
-                          # its shifted copies and is slower than full),
-                          # so CPU goldens/tests are band-independent.
-                          # 0 = full form everywhere.
     vertical: str = "hybrid"  # "sigma" | "hybrid"
     dtype: str = "float32"  # reference runs PACE_FLOAT_PRECISION=32
                             # (/root/reference/src/tcn/ci/pipeline/gtfv3_config.py:11)
@@ -103,9 +74,8 @@ class DycoreConfig:
                              # checkerboard-blind, which at c12 covers
                              # most of the face and was measured to let
                              # grid-scale noise grow to NaN by ~day 50);
-                             # "auto" = exchange for npx <= 96 (glue is
-                             # cheap there and measured FASTER at c48),
-                             # blend above.
+                             # "auto" = exchange for npx <= 96, blend
+                             # above.
     rim_split: bool = False  # split the c_sw stage into an interior
                              # core computed from LOCAL (un-exchanged)
                              # winds and rim bands from the exchanged
@@ -132,7 +102,7 @@ class DycoreConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout: how the cubed sphere maps onto TPU chips.
+    """Device-mesh layout: how the cubed sphere maps onto devices.
 
     The reference's analog is the MPI layout matrix (1x1/3x4/4x4 per face;
     /root/reference/src/tcn/ci/README.md:7-12).  Axes:

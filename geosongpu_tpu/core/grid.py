@@ -8,7 +8,7 @@ neighbor's real dx/dy/area so stencils can run straight across face edges).
 The reference repo never builds a grid itself - resolution/layout are pure
 configuration handed to the external gtFV3 model (cf.
 /root/reference/src/tcn/ci/data/experiments.yaml and
-src/tcn/ci/pipeline/held_suarez.py:142-218).  The TPU framework owns the
+src/tcn/ci/pipeline/held_suarez.py:142-218).  This framework owns the
 solver, so it owns the geometry too.
 
 Notes:

@@ -3,9 +3,9 @@
 Mirrors the FV3 state contract the reference bridges between GEOS Fortran and
 the GPU dycore (/root/reference/src/tcn/py_ftn_interface/example_def_dycore.yaml:46-70:
 u v w delz pt delp q ps pe pk peln pkz phis q_con omga ua va uc vc mfx mfy
-cx cy diss_est), re-laid-out TPU-first:
+cx cy diss_est), re-laid-out for XLA:
 
-* array layout [face, j, i, k] - the vertical is the minor (lane) dimension
+* array layout [face, j, i, k] - the vertical is the minor dimension
   so column physics/remap vectorize across it, horizontal stencils see
   (j, i) as (sublane-tiled) major dims;
 * the struct is a registered JAX dataclass pytree, so the whole state flows

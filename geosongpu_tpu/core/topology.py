@@ -2,7 +2,7 @@
 
 The reference harness delegates cubed-sphere halo exchange to the external
 NDSL/MPI stack (SURVEY.md SS2.10; /root/reference/sw_stack provisions the
-OpenMPI/UCX transport it rides on).  On TPU we make the topology *static
+OpenMPI/UCX transport it rides on).  Here the topology is *static
 data*: integer gather tables mapping every halo cell of every face to the
 real owning (face, j, i) cell.  Applying a table is a plain XLA gather -
 the SPMD partitioner turns it into collectives when the arrays are sharded,

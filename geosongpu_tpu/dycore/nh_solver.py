@@ -2,7 +2,7 @@
 
 The reference's dycore contract carries `w` and `delz` for the
 nonhydrostatic core (/root/reference/src/tcn/py_ftn_interface/example_def_dycore.yaml:49-51);
-the solver itself lives in the external gtFV3.  This is the TPU-native
+the solver itself lives in the external gtFV3.  This is the JAX
 equivalent of that vertically-implicit "Riemann solver": it advances the
 vertically-propagating acoustic/buoyancy dynamics of each column with a
 backward-Euler (theta=1) scheme, which reduces to one tridiagonal solve

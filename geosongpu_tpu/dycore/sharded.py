@@ -1,8 +1,8 @@
 """Face-sharded model execution: the full dynamics step under shard_map.
 
-This is the ICI-native execution mode the reference's MPI-decomposed runs
+This is the ppermute execution mode the reference's MPI-decomposed runs
 map to (SURVEY.md SS2.10): one device owns one cube face, *only halo
-strips* move between chips (lax.ppermute matching rounds from
+strips* move between devices (lax.ppermute matching rounds from
 parallel/shard_halo.py), and all stencil compute is face-local.  Contrast
 with the GSPMD mode (parallel/mesh.py), where XLA partitions the global
 program and typically all-gathers faces for the halo assembly.

@@ -1,6 +1,6 @@
 """C/D-grid finite-volume layer dynamics (the shallow-water core).
 
-TPU-native re-design of the gtFV3 c_sw/d_sw pair the reference CI exists to
+JAX re-design of the gtFV3 c_sw/d_sw pair the reference CI exists to
 validate (SURVEY.md SS0; state contract
 /root/reference/src/tcn/py_ftn_interface/example_def_dycore.yaml:46-70).
 
@@ -28,9 +28,9 @@ winds and fluxes use the full non-orthogonal metric (normal projection
 with cosa/sina); the *momentum* update's KE term still uses the
 locally-orthogonal approximation.
 
-Everything is elementwise/stencil math on [6, J, I, K] padded arrays: XLA
-fuses it into a few VPU passes over (x, K) tiles; the halo gathers at the
-top of the substep are the only non-local ops.
+Everything is elementwise/stencil math on [6, J, I, K] padded arrays that
+XLA fuses; the halo gathers at the top of the substep are the only
+non-local ops.
 """
 from __future__ import annotations
 
@@ -53,9 +53,8 @@ class PaddedMetrics(NamedTuple):
     """Device-resident padded grid arrays used every substep.
 
     Reciprocals (r*) are precomputed: dividing a [*, K] field by a
-    [*, 1] metric broadcasts into a full-size VPU divide (several times a
-    multiply); the substep is VPU-flop-bound so every hoisted divide
-    shows up on the step time."""
+    [*, 1] metric broadcasts into a full-size divide (several times the
+    cost of a multiply)."""
 
     area: jnp.ndarray    # [6, N, N, 1]
     rarea: jnp.ndarray
@@ -85,8 +84,7 @@ class PaddedMetrics(NamedTuple):
     # which is bit-exactly avg4 on uniform fields (well-balancedness
     # preserved) and linear-exact otherwise - zero in the symmetric face
     # interior, O(1) across face-edge metric kinks and at the 8 three-cell
-    # cube corners (FV3's one-sided a2b/fill_corners role as static data,
-    # so Pallas J-tiling is unaffected)
+    # cube corners (FV3's one-sided a2b/fill_corners role as static data)
     dw00: jnp.ndarray     # [6, N+1, N+1, 1] delta for cell (j-1, i-1)
     dw01: jnp.ndarray
     dw10: jnp.ndarray
@@ -122,9 +120,9 @@ class PaddedMetrics(NamedTuple):
     # ~2e-4 1/s spurious divergence there (5 orders above interior).
     # Inside the mask the operator blends to the corner-interpolated
     # (corner_dw, linear-exact) cell divergence of the chart-consistent
-    # advective winds: measured <= 6e-6 on the same flow, fully in-kernel
-    # (no exchange - the exchange+resample alternative,
-    # damping_normal_fields, costs ~57 ms/step of glue at c192-L72).
+    # advective winds: measured <= 6e-6 on the same flow, fully local
+    # (no exchange - the exchange+resample alternative is
+    # damping_normal_fields).
     # The D-grid checkerboard mode is invisible to the cell form, but
     # only on these O(N) bands; the dual form keeps controlling it
     # everywhere else.
@@ -307,8 +305,8 @@ def _center_to_yiface(a):
 
 
 def _pad_edge(a, axis: int, before: int = 1, after: int = 1):
-    """Edge-replication pad via explicit concat (Pallas-safe: jnp.pad's
-    edge mode fails to lower in Mosaic; values identical)."""
+    """Edge-replication pad via explicit concat (values identical to
+    jnp.pad's edge mode)."""
     idx0 = [slice(None)] * a.ndim
     idx0[axis] = slice(0, 1)
     idx1 = [slice(None)] * a.ndim
@@ -619,10 +617,9 @@ def a_grid_winds(pu, pv, m: PaddedMetrics):
 
     Every correction is supported only on the h-wide halo frame, so the
     hot path computes them on thin strips and adds the zero-padded deltas
-    in ONE fused full-array pass: the full-array rotation + two-direction
-    resample chain cost ~23 ms/step of pure HBM passes at c192-L72
-    (measured round 5); the strip form leaves two passes per field (the
-    average and the delta add).  Bit-identical to the full chain: the
+    in ONE fused full-array pass instead of the full-array rotation +
+    two-direction resample chain; the strip form leaves two passes per
+    field (the average and the delta add).  Bit-identical to the full chain: the
     corrections it skips are exact f32 zeros (support asserted per
     metrics set, with a full-array fallback)."""
     ua = _avg_u_to_center(pu)
@@ -692,8 +689,7 @@ def a_grid_winds(pu, pv, m: PaddedMetrics):
 def c_sw_part1(s: SWState, m: PaddedMetrics, dt2: float, ua, va):
     """C-grid winds (projected onto interface normals), half-step upwind
     mass/pt update, center KE and absolute vorticity.  Purely horizontal
-    (no vertical coupling) so it can run inside a Pallas kernel; the
-    hydrostatic integrals of (delp_h, pt_h) and the A-grid winds
+    (no vertical coupling); the hydrostatic integrals of (delp_h, pt_h) and the A-grid winds
     (a_grid_winds + the corner chart reconstruction) happen outside."""
     uc = _center_to_xiface(ua)              # [6, N, N+1, K]
     vc = _center_to_yiface(va)              # [6, N+1, N, K]
@@ -747,8 +743,8 @@ def c_sw_part2(uc, vc, pt_h, pkz, phi, ke, vort, m: PaddedMetrics,
     # vc at the x-interface: average 4 surrounding y-interface values
     vcx = 0.25 * (vc[:, :-1, :-1] + vc[:, :-1, 1:]
                   + vc[:, 1:, :-1] + vc[:, 1:, 1:])
-    # concat-assembled update (Pallas-safe; .at[].add lowers to scatter-add
-    # which Mosaic does not implement; values identical)
+    # concat-assembled update (values identical to .at[].add, without a
+    # scatter)
     uc_t = jnp.concatenate(
         [uc[:, :, :1],
          uc[:, :, 1:-1] + dt2 * (vortx * vcx - kex - gx),
@@ -820,8 +816,7 @@ class SubstepOut(NamedTuple):
     # factors are uct/vct times STATIC metrics, so accumulating uct/vct
     # and multiplying once per remap interval gives the same accumulated
     # factors (f32 reassociation only) at 2 fewer full-array
-    # accumulations per substep (measured ~11 ms/step of HBM passes at
-    # c192-L72)
+    # accumulations per substep
     uct_pad: jnp.ndarray  # [6, N, N+1, K]
     vct_pad: jnp.ndarray  # [6, N+1, N, K]
     mfx_pad: jnp.ndarray
@@ -837,7 +832,7 @@ class SubstepOut(NamedTuple):
 
 def transport_part(s: SWState, m: PaddedMetrics, crx, cry, xfx, yfx,
                    hord: int, advect_tracers: bool, hord_tm: int = 0):
-    """All PPM transport of one substep (horizontal only, Pallas-safe):
+    """All PPM transport of one substep (horizontal only):
     mass, heat, NH w (mass-weighted) / delz (volume-weighted), tracers.
 
     Returns (delp_new, pt_new, w_adv, delz_adv, q_new, mf)."""
@@ -911,7 +906,7 @@ def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry,
               pt_new, pkz, phi_mid, nh_fields, dt: float, hord: int,
               d2_bg: float, hord_mt: int = 0, vort=None, div_c_in=None,
               vtx_damp: float = 0.0):
-    """D-grid vector-invariant wind update (horizontal only, Pallas-safe).
+    """D-grid vector-invariant wind update (horizontal only).
 
     pkz/phi_mid: hydrostatic fields of the post-transport state (computed
     outside - vertically coupled).  nh_fields: optional
@@ -919,9 +914,8 @@ def wind_part(s: SWState, m: PaddedMetrics, uct, vct, crx, cry,
     The damping divergence: div_c_in, when given, is the glue-computed
     exchange+resample form (damping_divergence - dual structure
     everywhere except corner disks, full checkerboard control; chosen
-    for npx <= 96 where the exchange is cheap).  Otherwise the in-kernel
-    dual/cell blend over m.div_blend's edge bands (zero glue; chosen at
-    large npx where the glue passes cost ~57 ms/step, and the
+    for npx <= 96).  Otherwise the local dual/cell blend over
+    m.div_blend's edge bands (no exchange; chosen at large npx, where the
     checkerboard-blind bands are a vanishing fraction of the face).
     Both forms measure <= 6e-6 1/s spurious divergence on solid-body
     flow vs the raw contour's 2e-4 (tests/test_damping_divergence.py).

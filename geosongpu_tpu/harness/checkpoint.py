@@ -16,16 +16,25 @@ import numpy as np
 from ..core.config import DycoreConfig
 from ..core.state import DycoreState
 
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
-def enable_compilation_cache(path: str = "~/.cache/geosongpu_tpu_xla") -> None:
-    """The reference warms the DaCe cache with a 1-step 'cache build' run
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    The reference warms the DaCe cache with a 1-step 'cache build' run
     (held_suarez.py:297-308); JAX's persistent compilation cache plays the
-    same role across processes."""
+    same role across processes.  The directory is $JAX_COMPILATION_CACHE_DIR
+    when that is set, else a fixed `.jax_cache/` in the checkout (a fixed
+    path: the path is part of the cache key)."""
     import jax
 
-    p = os.path.expanduser(path)
-    os.makedirs(p, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", p)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".jax_cache")
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def save(directory: str, state: DycoreState, config: DycoreConfig,

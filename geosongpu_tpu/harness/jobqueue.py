@@ -2,31 +2,22 @@
 
 The reference submits through SLURM and polls accounting until a
 terminal state (`sbatch` + the `sacct -j <id>` loop,
-/root/reference/src/tcn/ci/utils/shell.py:86-100).  TPU fleets are
-provisioned through Cloud queued resources (or a GKE job queue) instead
-of SLURM; this module gives the harness the same submit -> poll ->
-terminal-state contract over pluggable backends:
+/root/reference/src/tcn/ci/utils/shell.py:86-100).  This module gives
+the harness the same submit -> poll -> terminal-state contract over a
+backend protocol (submit / state / cancel):
 
 * ``LocalBackend`` - detached process + pid polling (the single-host
   path, wrapping harness/shell.py; what every test/CI lane uses).
-* ``QueuedResourceBackend`` - drives the ``gcloud compute tpus
-  queued-resources`` command family (create / describe / delete) and
-  maps its states onto the job-state enum.  The command runner is
-  dependency-injected so the control flow is fully unit-tested without
-  gcloud (tests/test_jobqueue.py), exactly like the serializer injection
-  in validation/serialbox_convert.py.
 
 States mirror the reference's sacct vocabulary: PENDING (queued /
 provisioning), RUNNING, COMPLETED, FAILED, CANCELLED.
 """
 from __future__ import annotations
 
-import json
 import os
-import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 from .progress import Progress
 
@@ -113,87 +104,6 @@ class LocalBackend:
             os.killpg(int(h.job_id), 15)
         except ProcessLookupError:
             pass
-
-
-# --------------------------------------------------------------------------
-# TPU queued-resource backend
-# --------------------------------------------------------------------------
-
-# gcloud queued-resource states -> job states
-_QR_STATES = {
-    "WAITING_FOR_RESOURCES": JobState.PENDING,
-    "PROVISIONING": JobState.PENDING,
-    "ACCEPTED": JobState.PENDING,
-    "CREATING": JobState.PENDING,
-    "ACTIVE": JobState.RUNNING,
-    "SUSPENDING": JobState.RUNNING,
-    "SUSPENDED": JobState.CANCELLED,
-    "DELETING": JobState.CANCELLED,
-    "FAILED": JobState.FAILED,
-}
-
-
-def _default_runner(cmd: List[str]) -> str:
-    out = subprocess.run(cmd, capture_output=True, text=True)
-    if out.returncode != 0:
-        raise JobQueueError(f"{' '.join(cmd)} failed: {out.stderr[-500:]}")
-    return out.stdout
-
-
-class QueuedResourceBackend:
-    """Cloud TPU queued-resources submission.
-
-    runner: callable(cmd list) -> stdout, injected for tests; the
-    default shells out to gcloud."""
-
-    name = "queued-resource"
-
-    def __init__(self, project: str, zone: str,
-                 accelerator_type: str = "v5litepod-8",
-                 runtime_version: str = "v2-alpha-tpuv5-lite",
-                 runner: Optional[Callable[[List[str]], str]] = None):
-        self.project = project
-        self.zone = zone
-        self.accelerator_type = accelerator_type
-        self.runtime_version = runtime_version
-        self.runner = runner or _default_runner
-
-    def _base(self) -> List[str]:
-        return ["gcloud", "compute", "tpus", "queued-resources",
-                "--project", self.project, "--zone", self.zone]
-
-    def submit(self, commands: List[str], job_name: str = "job"
-               ) -> JobHandle:
-        qr_id = f"{job_name}-{int(time.time())}"
-        node_id = f"{qr_id}-node"
-        startup = " && ".join(commands)
-        cmd = self._base()
-        cmd[4:4] = ["create", qr_id]      # after 'queued-resources'
-        cmd += ["--node-id", node_id,
-                "--accelerator-type", self.accelerator_type,
-                "--runtime-version", self.runtime_version,
-                "--metadata", f"startup-script={startup}"]
-        self.runner(cmd)
-        return JobHandle(job_id=qr_id, backend=self.name,
-                         meta={"node_id": node_id})
-
-    def state(self, h: JobHandle) -> str:
-        cmd = self._base()
-        cmd[4:4] = ["describe", h.job_id]
-        cmd += ["--format", "json"]
-        try:
-            desc = json.loads(self.runner(cmd))
-        except JobQueueError:
-            # deleted resources describe as missing -> treat as done
-            return JobState.COMPLETED
-        raw = str(desc.get("state", {}).get("state", desc.get("state", "")))
-        return _QR_STATES.get(raw, JobState.PENDING)
-
-    def cancel(self, h: JobHandle) -> None:
-        cmd = self._base()
-        cmd[4:4] = ["delete", h.job_id]
-        cmd += ["--force", "--quiet"]
-        self.runner(cmd)
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,14 @@
-"""TPU job-launch configuration.
+"""GPU job-launch configuration.
 
 Parity with /root/reference/src/tcn/ci/actions/slurm.py:6-92
 (SlurmConfiguration dataclass with canned node/GPU layouts emitting srun
 command lines) and the per-rank GPU wrapper
-(templates/gpu-wrapper-slurm-mps.sh.tpl).  TPU mapping: one process per
-host owns all local chips (no MPS/rank pinning), multi-host runs are
-launched per host with coordinator env for `jax.distributed.initialize`;
-the wrapper script starts the hardware sampler around the payload the same
-way the reference's wrapper brackets the exe with hws client calls.
+(templates/gpu-wrapper-slurm-mps.sh.tpl).  Mapping: one JAX process per
+host drives all of its GPUs (no MPS/rank pinning: a second JAX process on
+a card would find its memory taken), multi-host runs are launched per
+host with coordinator env for `jax.distributed.initialize`; the wrapper
+script starts the hardware sampler around the payload the same way the
+reference's wrapper brackets the exe with hws client calls.
 """
 from __future__ import annotations
 
@@ -18,11 +19,11 @@ from .shell import ShellScript
 
 
 @dataclass
-class TPUJobConfig:
-    """One launch description: hosts x chips-per-host + env."""
+class GPUJobConfig:
+    """One launch description: hosts x GPUs-per-host + env."""
 
     hosts: int = 1
-    chips_per_host: int = 8
+    gpus_per_host: int = 1
     coordinator: str = "localhost:8476"
     env: Dict[str, str] = field(default_factory=dict)
     hardware_sampling: bool = False
@@ -30,21 +31,21 @@ class TPUJobConfig:
     # -- canned layouts (the reference's classmethod presets,
     # slurm.py:47-92) ---------------------------------------------------
     @classmethod
-    def one_chip(cls) -> "TPUJobConfig":
-        return cls(hosts=1, chips_per_host=1)
+    def one_gpu(cls) -> "GPUJobConfig":
+        return cls(hosts=1, gpus_per_host=1)
 
     @classmethod
-    def one_host_v5e8(cls) -> "TPUJobConfig":
-        return cls(hosts=1, chips_per_host=8)
+    def one_host_4gpu(cls) -> "GPUJobConfig":
+        return cls(hosts=1, gpus_per_host=4)
 
     @classmethod
-    def two_hosts_v5p(cls) -> "TPUJobConfig":
-        return cls(hosts=2, chips_per_host=4,
+    def two_hosts_4gpu(cls) -> "GPUJobConfig":
+        return cls(hosts=2, gpus_per_host=4,
                    env={"JAX_COORDINATOR_PORT": "8476"})
 
     @property
-    def total_chips(self) -> int:
-        return self.hosts * self.chips_per_host
+    def total_gpus(self) -> int:
+        return self.hosts * self.gpus_per_host
 
     def launch_env(self, process_id: int) -> Dict[str, str]:
         env = dict(self.env)
@@ -56,7 +57,7 @@ class TPUJobConfig:
             })
         return env
 
-    def wrapper_script(self, payload: List[str], name: str = "tpu_run",
+    def wrapper_script(self, payload: List[str], name: str = "gpu_run",
                        wd: str = ".") -> ShellScript:
         """The gpu-wrapper analog: bracket the payload with the hardware
         sampler on process 0 (tpl:8-19,60-68 behavior)."""

@@ -1,13 +1,13 @@
 """Progress logging context manager.
 
 Parity with /root/reference/src/tcn/ci/utils/progress.py:4-24 (prefix
-logging with elapsed seconds), prefix renamed for the TPU framework.
+logging with elapsed seconds), prefix renamed for this framework.
 """
 from __future__ import annotations
 
 import time
 
-PREFIX = "[GEOSONTPU]"
+PREFIX = "[GEOSONGPU]"
 
 
 class Progress:

@@ -2,8 +2,7 @@
 
 Parity with /root/reference/src/tcn/ci/utils/shell.py:11-130 (write
 executable .sh with env sourcing + modules, execute via subprocess, or
-submit-and-poll for batch systems).  The TPU runtime is single-process per
-host, so the sbatch/sacct polling loop becomes a generic
+submit-and-poll for batch systems).  JAX runs one process per host, so the sbatch/sacct polling loop becomes a generic
 launch-and-poll-pidfile helper used for detached runs (hws servers,
 long benchmarks).
 """

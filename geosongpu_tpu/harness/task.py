@@ -1,8 +1,8 @@
 """Task framework: abstract task lifecycle + experiment dispatch.
 
 Parity with /root/reference/src/tcn/ci/pipeline/task.py:14-112 (TaskBase
-run/check lifecycle, experiment lookup from packaged YAML, sequential
-executor raising on failed check), TPU-first differences:
+run/check lifecycle, experiment lookup from a packaged registry,
+sequential executor raising on failed check), with these differences:
 
 * experiment config resolves to a *typed* ExperimentConfig tree instead of
   loose dicts rendered into shell scripts;
@@ -12,12 +12,10 @@ executor raising on failed check), TPU-first differences:
 from __future__ import annotations
 
 import datetime
-import importlib.resources
 import json
 import os
-from typing import Any, Dict, List, Optional
-
-import yaml
+import tomllib
+from typing import Any, Dict, Optional
 
 from ..core.config import ExperimentConfig
 from .environment import Environment
@@ -51,7 +49,7 @@ class TaskBase:
         os.makedirs(env.CI_WORKSPACE, exist_ok=True)
         path = os.path.join(env.CI_WORKSPACE, "ci_metadata")
         with open(path, "w") as f:
-            yaml.safe_dump(env.metadata, f)
+            json.dump(env.metadata, f, indent=2, default=str)
 
     def run(self, config: Dict[str, Any], env: Environment) -> None:
         self._prelude(config, env)
@@ -76,12 +74,12 @@ def _jsonable(x):
 
 
 def _experiments_path() -> str:
-    return os.path.join(os.path.dirname(__file__), "data", "experiments.yaml")
+    return os.path.join(os.path.dirname(__file__), "data", "experiments.toml")
 
 
 def load_experiments() -> Dict[str, Any]:
-    with open(_experiments_path()) as f:
-        return yaml.safe_load(f)
+    with open(_experiments_path(), "rb") as f:
+        return tomllib.load(f)
 
 
 def get_config(experiment_name: str) -> Dict[str, Any]:

@@ -6,12 +6,9 @@ its run_action branches on PipelineAction: validation = 1 ts cache + 12 h
 run, benchmark = 1-day DSL vs 1-day Fortran, aquaplanet.py:99-178).  Here:
 
   Validation / All : one gated moist run at the experiment config
-  Benchmark        : backend PAIR - the jnp/XLA path vs the fused Pallas
-                     path (dycore substep kernels + the microphysics
-                     column kernel, which the dry HS pair never touches) -
-                     each with a measured phase tree (incl. the moist
-                     physics leaf) and optional energy envelope, plus
-                     round-over-round comparison.
+  Benchmark        : the same gated run with a measured phase tree (incl.
+                     the moist physics leaf) and optional energy
+                     envelope, plus round-over-round comparison.
 """
 from __future__ import annotations
 
@@ -47,7 +44,7 @@ class Aquaplanet(TaskBase):
         # block (surface fluxes + shallow conv + microphysics + HS
         # relaxation), with block-local latitudes/SST
         place, step_fn, unplace, mesh_desc = build_mesh_stepper(
-            model, mesh, lambda s, lats_l: model.physics_fn(s, lats_l))
+            model, mesh, model.physics_fn)
         rec = BenchmarkRecord(
             experiment=env.experiment_name,
             backend=backend_name,
@@ -89,7 +86,7 @@ class Aquaplanet(TaskBase):
             from ...hws.analysis import energy_envelope, load_data
 
             er = energy_envelope(load_data(dump))
-            rec.energy = {"cpu_kwh": er.cpu_kwh, "tpu_kwh": er.tpu_kwh,
+            rec.energy = {"cpu_kwh": er.cpu_kwh, "gpu_kwh": er.gpu_kwh,
                           "total_kwh": er.total_kwh}
 
         if with_phases and mesh_desc.startswith("single-device"):
@@ -119,29 +116,12 @@ class Aquaplanet(TaskBase):
         os.makedirs(ws, exist_ok=True)
         hw = jax.default_backend()
 
-        if env.experiment_action == PipelineAction.Benchmark:
-            # backend pair: jnp/XLA vs fused Pallas (dycore + moist
-            # microphysics kernel - the reference's DSL-vs-fortran pair,
-            # aquaplanet.py:99-178)
-            records = []
-            pairs = [("jnp", cfg.dycore),
-                     ("pallas", dataclasses.replace(
-                         cfg.dycore, pallas_dycore=True,
-                         pallas_microphysics=True))]
-            for name, dyc in pairs:
-                rec, state, model = self._timed_run(
-                    env, dyc, f"{hw}:{name}", cfg.run.steps,
-                    cfg.run.warmup_steps, with_phases=True, mesh=cfg.mesh)
-                rec.save(os.path.join(
-                    ws, f"benchmark_{env.experiment_name}_{name}.json"))
-                records.append(rec)
-        else:
-            rec, state, model = self._timed_run(
-                env, cfg.dycore, hw, cfg.run.steps, cfg.run.warmup_steps,
-                mesh=cfg.mesh)
-            rec.save(os.path.join(ws,
-                                  f"benchmark_{env.experiment_name}.json"))
-            records = [rec]
+        rec, state, model = self._timed_run(
+            env, cfg.dycore, hw, cfg.run.steps, cfg.run.warmup_steps,
+            with_phases=env.experiment_action == PipelineAction.Benchmark,
+            mesh=cfg.mesh)
+        rec.save(os.path.join(ws, f"benchmark_{env.experiment_name}.json"))
+        records = [rec]
 
         np.savez_compressed(
             os.path.join(ws, f"state_{env.experiment_name}.npz"),
@@ -170,6 +150,12 @@ class Aquaplanet(TaskBase):
             raise CICheckException(f"unphysical vapor: {q[..., 0].max()}")
         if not (ps.min() > 5.0e4 and ps.max() < 1.2e5):
             raise CICheckException(f"unphysical ps: {ps.min()}..{ps.max()}")
+        for rec in records:
+            rec.extra["gates"] = {"finite": True,
+                                  "qv_min": float(q[..., 0].min()),
+                                  "qv_max": float(q[..., 0].max()),
+                                  "ps_min": float(ps.min()),
+                                  "ps_max": float(ps.max())}
 
         # round-over-round comparison, like the HS task
         all_records = list(records)

@@ -1,6 +1,6 @@
 """Maintenance tasks (parity:
 /root/reference/src/tcn/ci/pipeline/ci_clean.py:12-33 and ci_info.py:9-30;
-the SLURM-cancel task has no TPU analog - single-process runtime).
+the SLURM-cancel task has no analog - one JAX process per host).
 """
 from __future__ import annotations
 

@@ -3,17 +3,19 @@
 Parity with /root/reference/src/tcn/ci/pipeline/physics_standalone.py:13-146:
 the reference builds each Fortran kernel twice (serial + OpenACC), runs 5
 datasets through both, and gates |oacc - serial| <= 0.01% per variable.
-The TPU analog is the same dual-build contract: every column kernel runs
-through TWO compilation paths - the jnp source traced into XLA vs the
-fused Pallas/Mosaic kernel (ops/pallas/columns.py; on non-TPU hosts the
-Pallas interpreter) - over 5 synthetic datasets at the same 0.01% gate.
-GFDLMicrophysics, FillQ2Zero, Buoyancy and EvapSublPdfLoop have fully
-independent second implementations (own gas constants and saturation
-functions, density-ratio buoyancy, PDF-integral clear fraction, unrolled
-recurrences - ops/pallas/microphysics.py, ops/pallas/standalone_twins.py),
-so their gates compare genuinely different SOURCES, matching the
-reference's serial-vs-OpenACC two-source contract; the remaining three
-run the shared jnp body through the two compilation paths.
+Here the same dual-build contract over 5 synthetic datasets at the same
+0.01% gate:
+
+* build 1: the jnp source compiled for the host CPU device;
+* build 2: compiled for the default device (the GPU where there is one).
+  GFDLMicrophysics, FillQ2Zero, Buoyancy and EvapSublPdfLoop use fully
+  independent second implementations (own gas constants and saturation
+  functions, density-ratio buoyancy, PDF-integral clear fraction,
+  unrolled recurrences - physics/twins.py), so their gates compare
+  genuinely different SOURCES, matching the reference's
+  serial-vs-OpenACC two-source contract; the remaining three compile the
+  shared jnp body for the default device, the reference's CPU-vs-GPU
+  dual build.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Callable, Dict, List, Tuple
 import numpy as np
 
 from ...physics import standalone as K
+from ...physics import twins as T
 from ..environment import Environment
 from ..exceptions import CICheckException
 from ..progress import Progress
@@ -77,44 +80,38 @@ KERNELS: Dict[str, Callable] = {
 
 
 def _run_kernel(name: str, data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-    """Build 1: the jnp source traced into XLA (the 'serial' build)."""
+    """Build 1: the jnp source compiled for the host CPU device."""
     import jax
 
-    out = jax.jit(KERNELS[name])(data)
-    return {k: np.asarray(v) for k, v in out.items()}
+    with jax.default_device(jax.devices("cpu")[0]):
+        out = jax.jit(KERNELS[name])(data)
+        return {k: np.asarray(v) for k, v in out.items()}
 
 
-def _run_kernel_pallas(name: str, data: Dict[str, np.ndarray]
+# kernel name -> independent second source (physics/twins.py)
+TWINS: Dict[str, Callable] = {
+    "FillQ2Zero": lambda d: {"q": T.fill_q2_zero_twin(d["q_neg"],
+                                                      d["delp"])},
+    "Buoyancy": lambda d: {"b": T.buoyancy_twin(d["t"], d["qv"], d["p"],
+                                                d["t"] + 0.5, d["qv"])},
+    "EvapSublPdfLoop": lambda d: dict(zip(
+        ("t", "qv", "ql", "qi"),
+        T.evap_subl_pdf_twin(d["t"], d["qv"], d["ql"], d["qi"], d["p"],
+                             600.0))),
+    "GFDLMicrophysics": lambda d: dict(zip(
+        ("t", "qv", "ql", "qr", "qi", "precip"),
+        T.gfdl_microphysics_twin(d["t"], d["qv"], d["ql"], d["qr"],
+                                 d["qi"], d["p"], d["delp"], 600.0))),
+}
+
+
+def _run_kernel_device(name: str, data: Dict[str, np.ndarray]
                        ) -> Dict[str, np.ndarray]:
-    """Build 2: the fused Pallas/Mosaic kernel (the 'OpenACC' build);
-    interpreter mode off-TPU."""
+    """Build 2: the kernel's independent twin where it has one, else the
+    jnp source, compiled for the default device."""
     import jax
 
-    from ...ops.pallas.columns import column_kernel_call, fill_q2_zero_pallas
-    from ...ops.pallas.microphysics import gfdl_microphysics_pallas
-
-    from ...ops.pallas.standalone_twins import (buoyancy_pallas,
-                                                evap_subl_pdf_pallas)
-
-    interp = jax.default_backend() != "tpu"
-    if name == "Buoyancy":
-        out = {"b": buoyancy_pallas(data["t"], data["qv"], data["p"],
-                                    data["t"] + 0.5, data["qv"],
-                                    interpret=interp)}
-    elif name == "EvapSublPdfLoop":
-        out = dict(zip(("t", "qv", "ql", "qi"), evap_subl_pdf_pallas(
-            data["t"], data["qv"], data["ql"], data["qi"], data["p"],
-            600.0, interpret=interp)))
-    elif name == "GFDLMicrophysics":
-        out = gfdl_microphysics_pallas(
-            data["t"], data["qv"], data["ql"], data["qr"], data["qi"],
-            data["p"], data["delp"], 600.0, interpret=interp)
-        out = dict(zip(("t", "qv", "ql", "qr", "qi", "precip"), out))
-    elif name == "FillQ2Zero":
-        out = {"q": fill_q2_zero_pallas(data["q_neg"], data["delp"],
-                                        interpret=interp)}
-    else:
-        out = column_kernel_call(KERNELS[name], data, interpret=interp)
+    out = jax.jit(TWINS.get(name, KERNELS[name]))(data)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -129,7 +126,7 @@ class _PhysicsStandaloneBase(TaskBase):
         for i in range(N_DATASETS):
             data = _datasets(seed=1000 + i)
             ref = _run_kernel(self.kernel, data)
-            opt = _run_kernel_pallas(self.kernel, data)
+            opt = _run_kernel_device(self.kernel, data)
             assert set(ref) == set(opt), (self.kernel, ref.keys(),
                                           opt.keys())
             results.append((ref, opt))
@@ -160,7 +157,6 @@ class _PhysicsStandaloneBase(TaskBase):
 
 # one registered task per kernel (reference classes :149-339)
 for _name in KERNELS:
-    _cls = type(f"OACC{_name}" if False else _name, (_PhysicsStandaloneBase,),
-                {"kernel": _name})
+    _cls = type(_name, (_PhysicsStandaloneBase,), {"kernel": _name})
     Registry.register(_cls)
     globals()[_name] = _cls

@@ -2,7 +2,7 @@
 
 The reference A/B-tests its MPI transport with OSU microbenchmarks and
 archives the results (/root/reference/sw_stack/.../osu-bench.sh:15-86,
-results/mpi_gpu_rdma/24W7.json).  TPU analog:
+results/mpi_gpu_rdma/24W7.json).  Here:
 
 * ppermute ring bandwidth + psum latency sweep (the OSU rows);
 * a weak-scaling sweep of the Held-Suarez step over subtile ppermute

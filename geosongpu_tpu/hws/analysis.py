@@ -15,19 +15,19 @@ import numpy as np
 @dataclass
 class EnergyReport:
     cpu_joules: float
-    tpu_joules: float
+    gpu_joules: float
 
     @property
     def cpu_kwh(self) -> float:
         return self.cpu_joules / 3.6e6
 
     @property
-    def tpu_kwh(self) -> float:
-        return self.tpu_joules / 3.6e6
+    def gpu_kwh(self) -> float:
+        return self.gpu_joules / 3.6e6
 
     @property
     def total_kwh(self) -> float:
-        return self.cpu_kwh + self.tpu_kwh
+        return self.cpu_kwh + self.gpu_kwh
 
 
 def load_data(path: str) -> Dict[str, np.ndarray]:
@@ -47,5 +47,5 @@ def energy_envelope(data: Dict[str, np.ndarray],
     rate = float(data["rate_s"][0])
     sl = slice(start, end)
     cpu = np.trapezoid(data["cpu_psu"][sl], dx=rate) if len(data["cpu_psu"][sl]) > 1 else 0.0
-    tpu = np.trapezoid(data["tpu_psu"][sl], dx=rate) if len(data["tpu_psu"][sl]) > 1 else 0.0
-    return EnergyReport(cpu_joules=float(cpu), tpu_joules=float(tpu))
+    gpu = np.trapezoid(data["gpu_psu"][sl], dx=rate) if len(data["gpu_psu"][sl]) > 1 else 0.0
+    return EnergyReport(cpu_joules=float(cpu), gpu_joules=float(gpu))

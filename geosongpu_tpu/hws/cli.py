@@ -57,7 +57,7 @@ def main(argv=None) -> int:
             start = int(args.data_range[0] / rate)
             end = int(args.data_range[1] / rate)
         rep = energy_envelope(data, start, end)
-        print(f"cpu: {rep.cpu_kwh*1e3:.3f} Wh, tpu: {rep.tpu_kwh*1e3:.3f} Wh, "
+        print(f"cpu: {rep.cpu_kwh*1e3:.3f} Wh, gpu: {rep.gpu_kwh*1e3:.3f} Wh, "
               f"total: {rep.total_kwh*1e3:.3f} Wh")
         return 0
     return 1

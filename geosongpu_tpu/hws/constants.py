@@ -1,11 +1,10 @@
-"""Hardware-sampler protocol constants + hardware spec table.
+"""Hardware-sampler protocol constants + host CPU spec table.
 
 Parity with /root/reference/src/tcn/hws/constants.py:5-63 (unix socket
 path, server orders, client verbs, 0.1 s default rate, spec table selected
-by env vars) - specs swapped from A100/EPYC to TPU hosts.  TPU per-chip
-power is not exposed by the runtime; the energy model uses nameplate TDP
-scaled by duty cycle, which keeps the reference's "utilization x TDP,
-clamped at idle" approach (hws/server.py:56-59 analog).
+by an env var).  GPU power is read from nvidia-smi (hws/server.py), so
+only the host CPU keeps the reference's "utilization x TDP, clamped at
+idle" model.
 """
 from __future__ import annotations
 
@@ -28,20 +27,14 @@ DEFAULT_SAMPLE_RATE_S = 0.1
 
 DUMP_FORMAT = os.environ.get("HWSAMPLER_DUMP_FORMAT", "npz")  # npz | json
 
-# spec table: name -> dict(idle_w, tdp_w, mem_mb)
+# host CPU spec table: name -> dict(idle_w, tdp_w)
 HW_SPECS = {
-    # TPU chips (estimates: public nameplate numbers where available)
-    "tpu_v5e": {"idle_w": 60.0, "tdp_w": 220.0, "mem_mb": 16 * 1024},
-    "tpu_v5p": {"idle_w": 90.0, "tdp_w": 350.0, "mem_mb": 95 * 1024},
-    "tpu_v4": {"idle_w": 90.0, "tdp_w": 192.0, "mem_mb": 32 * 1024},
-    # host CPUs
-    "epyc_7402": {"idle_w": 60.0, "tdp_w": 180.0, "mem_mb": 0},
-    "epyc_7763": {"idle_w": 80.0, "tdp_w": 280.0, "mem_mb": 0},
-    "generic_host": {"idle_w": 40.0, "tdp_w": 150.0, "mem_mb": 0},
+    "epyc_7402": {"idle_w": 60.0, "tdp_w": 180.0},
+    "epyc_7763": {"idle_w": 80.0, "tdp_w": 280.0},
+    "generic_host": {"idle_w": 40.0, "tdp_w": 150.0},
 }
 
 CPU_SPEC = HW_SPECS[os.environ.get("HWS_HW_CPU", "generic_host")]
-TPU_SPEC = HW_SPECS[os.environ.get("HWS_HW_TPU", "tpu_v5e")]
 
 
 def socket_path(directory: str | None = None) -> str:

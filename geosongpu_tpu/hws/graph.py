@@ -21,20 +21,19 @@ def graph(path: str, out_png: str | None = None) -> str:
 
     fig, ax1 = plt.subplots(figsize=(10, 5))
     ax1.plot(t, data["cpu_psu"], label="CPU power [W]", color="tab:blue")
-    ax1.plot(t, data["tpu_psu"], label="TPU power [W]", color="tab:red")
+    ax1.plot(t, data["gpu_psu"], label="GPU power [W] (nvidia-smi)",
+             color="tab:red")
     ax1.set_xlabel("time [s]")
     ax1.set_ylabel("power [W]")
-    ax1.set_ylim(0, max(C.TPU_SPEC["tdp_w"], C.CPU_SPEC["tdp_w"]) * 1.1)
+    ax1.set_ylim(0, max(np.nanmax(data["gpu_psu"]), C.CPU_SPEC["tdp_w"])
+                 * 1.1)
 
     ax2 = ax1.twinx()
     ax2.plot(t, data["cpu_exe_utl"], label="CPU util [%]",
              color="tab:green", alpha=0.6)
-    if "tpu_busy" in data and len(data["tpu_busy"]):
-        ax2.plot(t, np.asarray(data["tpu_busy"]) * 100.0,
-                 label="TPU busy [%] (queue probe)", color="tab:green")
-    ax2.plot(t, data["tpu_mem_mb"] / max(C.TPU_SPEC["mem_mb"], 1) * 100,
-             label="TPU mem [%]", color="tab:orange", alpha=0.6)
-    ax2.set_ylabel("utilization / memory [%]")
+    ax2.plot(t, data["gpu_util"], label="GPU util [%] (nvidia-smi)",
+             color="tab:purple")
+    ax2.set_ylabel("utilization [%]")
     ax2.set_ylim(0, 105)
 
     for tick in data.get("ticks", []):
@@ -48,7 +47,7 @@ def graph(path: str, out_png: str | None = None) -> str:
     rep = energy_envelope(data)
     ax1.set_title(
         f"max CPU {np.max(data['cpu_psu']):.0f} W, "
-        f"max TPU mem {np.max(data['tpu_mem_mb']):.0f} MB, "
+        f"max GPU mem {np.nanmax(data['gpu_mem_mb']):.0f} MiB, "
         f"energy {rep.total_kwh*1e3:.2f} Wh")
 
     out = out_png or (path.rsplit(".", 1)[0] + ".png")
@@ -56,5 +55,5 @@ def graph(path: str, out_png: str | None = None) -> str:
     plt.close(fig)
     print(f"max CPU power: {np.max(data['cpu_psu']):.1f} W")
     print(f"energy envelope: cpu {rep.cpu_kwh*1e3:.3f} Wh, "
-          f"tpu {rep.tpu_kwh*1e3:.3f} Wh")
+          f"gpu {rep.gpu_kwh*1e3:.3f} Wh")
     return out

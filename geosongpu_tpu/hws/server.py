@@ -1,122 +1,108 @@
 """Hardware sampling server: asyncio unix-socket service.
 
 Parity with /root/reference/src/tcn/hws/server.py:35-151 (START spawns a
-sampling coroutine, DUMP writes npz/json, TICK marks indices, STOP exits),
-with the NVML reads replaced by what a TPU host exposes:
+sampling coroutine, DUMP writes npz/json, TICK marks indices, STOP exits).
+The reference reads NVML every tick; here each tick runs
 
+    nvidia-smi --query-gpu=power.draw,memory.used,utilization.gpu
+               --format=csv,noheader,nounits
+
+which reads the same counters without loading JAX, so the sampler never
+becomes a second process on the card.  Fields:
+
+  gpu_psu       measured power.draw [W], summed over the host's GPUs
+  gpu_mem_mb    memory.used [MiB], summed over the host's GPUs
+  gpu_util      utilization.gpu [%], mean over the host's GPUs
   cpu_exe_utl   psutil.cpu_percent
   cpu_psu       idle + utilization * (tdp - idle)   [reference's model]
-  host_mem      psutil.virtual_memory().percent
-  tpu_mem       jax device memory_stats()['bytes_in_use'] (0 if N/A)
-  tpu_busy      MEASURED queue-probe duty estimate: a 1-element device op
-                is dispatched and timed; when the chip is executing other
-                work the probe queues behind it, so its completion
-                latency rises above the calibrated idle baseline.  The
-                series genuinely dips to ~0 when the chip idles (gated in
-                tests/test_harness.py), unlike the round-3 bytes-in-use
-                boolean.  Post-hoc, hws.xprof_util derives the exact duty
-                cycle from profiler traces (device-interval union).
-  tpu_psu       idle + tpu_busy * (tdp - idle) power envelope
+  host_mem_pct  psutil.virtual_memory().percent
+
+The exact device busy share of a window comes from a profiler trace
+(hws.xprof_util.device_busy).
 """
 from __future__ import annotations
 
 import asyncio
 import json
 import os
-import time
-from typing import Dict, List
+import shutil
+import subprocess
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import psutil
 
 from . import constants as C
 
-FIELDS = ("tpu_psu", "tpu_mem_mb", "tpu_busy", "cpu_exe_utl", "cpu_psu",
+FIELDS = ("gpu_psu", "gpu_mem_mb", "gpu_util", "cpu_exe_utl", "cpu_psu",
           "host_mem_pct")
+
+NVIDIA_SMI_QUERY = ("--query-gpu=power.draw,memory.used,utilization.gpu",
+                    "--format=csv,noheader,nounits")
+
+
+def read_nvidia_smi() -> List[str]:
+    """One CSV line per GPU: `power.draw, memory.used, utilization.gpu`."""
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        raise FileNotFoundError("nvidia-smi not found: the hardware "
+                                "sampler reads GPU power from it")
+    out = subprocess.run([exe, *NVIDIA_SMI_QUERY], capture_output=True,
+                         text=True, check=True, timeout=10)
+    return out.stdout.strip().splitlines()
+
+
+def parse_nvidia_smi(lines: Sequence[str]) -> Tuple[float, float, float]:
+    """(total power W, total memory MiB, mean utilization %) over the GPUs
+    in `lines`; a field nvidia-smi reports as `[N/A]` reads as NaN."""
+    def num(x: str) -> float:
+        x = x.strip()
+        return float("nan") if x.startswith("[") else float(x)
+
+    rows = [[num(x) for x in ln.split(",")] for ln in lines if ln.strip()]
+    if not rows or any(len(r) != 3 for r in rows):
+        raise ValueError(f"unexpected nvidia-smi output: {list(lines)!r}")
+    power, mem, util = zip(*rows)
+    return sum(power), sum(mem), sum(util) / len(util)
 
 
 class Sampler:
-    def __init__(self, rate_s: float = C.DEFAULT_SAMPLE_RATE_S):
+    """reader: returns nvidia-smi's CSV lines (default: run nvidia-smi;
+    tests inject recorded lines).  Raises FileNotFoundError when the
+    default reader has no nvidia-smi to run."""
+
+    def __init__(self, rate_s: float = C.DEFAULT_SAMPLE_RATE_S,
+                 reader: Optional[Callable[[], List[str]]] = None):
+        if reader is None and shutil.which("nvidia-smi") is None:
+            raise FileNotFoundError("nvidia-smi not found: the hardware "
+                                    "sampler reads GPU power from it")
         self.rate_s = rate_s
+        self.reader = reader or read_nvidia_smi
         self.data: Dict[str, List[float]] = {k: [] for k in FIELDS}
         self.ticks: List[int] = []
         self.running = False
-        self._devices = None
-        self._probe = None        # (fn, arg) tiny compiled device op
-        self._idle_lat = None     # calibrated idle probe latency [s]
 
-    def _setup_probe(self) -> bool:
-        if self._probe is not None:
-            return self._idle_lat is not None
-        try:
-            import jax
-            import jax.numpy as jnp
-
-            if self._devices is None:
-                self._devices = jax.local_devices()
-            dev = self._devices[0]
-            x = jax.device_put(jnp.ones((8,), jnp.float32), dev)
-            fn = jax.jit(lambda a: a + 1.0)
-            fn(x).block_until_ready()   # compile
-            self._probe = (fn, x)
-            # calibrate idle latency (median of 5)
-            lats = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                fn(x).block_until_ready()
-                lats.append(time.perf_counter() - t0)
-            lats.sort()
-            self._idle_lat = lats[len(lats) // 2]
-            return True
-        except Exception:
-            self._probe = (None, None)
-            self._idle_lat = None
-            return False
-
-    def _tpu_busy(self) -> float:
-        """Queue-probe duty estimate in [0, 1]: the probe op completes
-        only after in-flight device work; excess latency over the idle
-        baseline, normalized by the sampling interval, approximates the
-        busy fraction seen by this sample."""
-        if not self._setup_probe():
-            return 0.0
-        fn, x = self._probe
-        t0 = time.perf_counter()
-        fn(x).block_until_ready()
-        lat = time.perf_counter() - t0
-        excess = max(0.0, lat - 2.0 * self._idle_lat)
-        return min(1.0, excess / max(self.rate_s, 4.0 * self._idle_lat))
-
-    def _tpu_mem_mb(self) -> float:
-        try:
-            import jax
-
-            if self._devices is None:
-                self._devices = jax.local_devices()
-            stats = self._devices[0].memory_stats()
-            if stats and "bytes_in_use" in stats:
-                return stats["bytes_in_use"] / 1e6
-        except Exception:
-            pass
-        return 0.0
-
-    def sample_once(self) -> None:
+    def _read_row(self) -> Tuple[float, ...]:
         cpu = psutil.cpu_percent(interval=None)
         cpu_psu = C.CPU_SPEC["idle_w"] + cpu / 100.0 * (
             C.CPU_SPEC["tdp_w"] - C.CPU_SPEC["idle_w"])
         mem = psutil.virtual_memory().percent
-        tpu_mem = self._tpu_mem_mb()
-        tpu_busy = self._tpu_busy()
-        tpu_psu = C.TPU_SPEC["idle_w"] + tpu_busy * (
-            C.TPU_SPEC["tdp_w"] - C.TPU_SPEC["idle_w"])
-        row = (tpu_psu, tpu_mem, tpu_busy, cpu, cpu_psu, mem)
+        gpu_psu, gpu_mem, gpu_util = parse_nvidia_smi(self.reader())
+        return (gpu_psu, gpu_mem, gpu_util, cpu, cpu_psu, mem)
+
+    def _append(self, row: Tuple[float, ...]) -> None:
         for k, v in zip(FIELDS, row):
             self.data[k].append(v)
+
+    def sample_once(self) -> None:
+        self._append(self._read_row())
 
     async def run(self) -> None:
         self.running = True
         while self.running:
-            self.sample_once()
+            # nvidia-smi blocks for tens of ms: read it off the event
+            # loop, append on it (DUMP never sees a half-appended row)
+            self._append(await asyncio.to_thread(self._read_row))
             await asyncio.sleep(self.rate_s)
 
     def tick(self) -> None:

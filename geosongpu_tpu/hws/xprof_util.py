@@ -1,100 +1,71 @@
-"""Device duty-cycle from an xprof trace (measured, not modeled).
+"""Device busy share from a jax.profiler trace (measured, not modeled).
 
 The reference samples NVML utilization counters every 0.1 s
-(/root/reference/src/tcn/hws/server.py:46-59).  The TPU runtime exposes
-no streaming utilization counter, but a jax.profiler trace records every
-device op's wall interval - the union of those intervals over the trace
-span IS the measured duty cycle.  (Plain summing double-counts nested
-spans like `while` bodies - measured 846 "ms/step" vs a true 501 at
-c192 - so this computes the interval union.)
+(/root/reference/src/tcn/hws/server.py:46-59).  A jax.profiler trace
+records the interval of every kernel the GPU ran, so the union of those
+intervals over the window is the measured busy time.  (Plain summing
+double-counts kernels that overlap on several streams, so this takes the
+interval union.)
+
+In the .xplane.pb a trace writes, each GPU is a plane named
+`/device:GPU:<n>` whose lines are its CUDA streams (`Stream #<id>(...)`),
+one event per kernel or copy; the host threads are `/host:CPU` planes.
 """
 from __future__ import annotations
 
 import glob
-import gzip
-import json
-from typing import Dict, Tuple
+import os
+from typing import Dict, Iterable, List, Tuple
+
+DEVICE_PLANE_PREFIX = "/device:GPU:"
+STREAM_LINE_PREFIX = "Stream #"
 
 
-def device_busy(trace_dir: str) -> Dict[str, float]:
-    """{busy_s, span_s, duty} from the newest trace under trace_dir.
+def device_intervals(planes: Iterable) -> List[Tuple[int, int]]:
+    """(start_ns, end_ns) of every event on the GPU stream lines of
+    `planes` (objects with .name/.lines, lines with .name/.events, events
+    with .start_ns/.duration_ns, as jax.profiler.ProfileData gives them)."""
+    iv = []
+    for plane in planes:
+        if not plane.name.startswith(DEVICE_PLANE_PREFIX):
+            continue
+        for line in plane.lines:
+            if not line.name.startswith(STREAM_LINE_PREFIX):
+                continue
+            iv.extend((e.start_ns, e.start_ns + e.duration_ns)
+                      for e in line.events)
+    return sorted(iv)
 
-    busy_s: union of device-op intervals on the 'XLA Ops' lanes;
-    span_s: first-op start to last-op end; duty: busy/span."""
-    paths = sorted(glob.glob(f"{trace_dir}/**/*.trace.json.gz",
-                             recursive=True))
-    if not paths:
-        raise FileNotFoundError(f"no trace.json.gz under {trace_dir}")
-    with gzip.open(paths[-1]) as f:
-        tr = json.load(f)
-    events = tr.get("traceEvents", [])
-    lanes = set()
-    for e in events:
-        if (e.get("ph") == "M" and e.get("name") == "thread_name"
-                and e.get("args", {}).get("name") == "XLA Ops"):
-            lanes.add((e["pid"], e["tid"]))
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("ph") == "X"
-                and (e.get("pid"), e.get("tid")) in lanes)
-    if not iv:
-        return {"busy_s": 0.0, "span_s": 0.0, "duty": 0.0}
-    busy = 0.0
-    cs, ce = iv[0]
-    for s, t in iv[1:]:
+
+def busy_share(intervals: List[Tuple[int, int]]) -> Dict[str, float]:
+    """{busy_s, span_s, busy_share} of sorted intervals: busy is their
+    union, span runs from the first start to the last end."""
+    if not intervals:
+        raise ValueError("no device events in the trace: it holds no GPU "
+                         "stream lines (was it taken on a GPU?)")
+    busy = 0
+    cs, ce = intervals[0]
+    for s, t in intervals[1:]:
         if s > ce:
             busy += ce - cs
             cs, ce = s, t
         else:
             ce = max(ce, t)
     busy += ce - cs
-    span = iv[-1][1] - iv[0][0]
-    span = max(span, max(t for _, t in iv) - iv[0][0])
-    return {"busy_s": busy / 1e6, "span_s": span / 1e6,
-            "duty": busy / span if span else 0.0}
+    span = max(t for _, t in intervals) - intervals[0][0]
+    return {"busy_s": busy / 1e9, "span_s": span / 1e9,
+            "busy_share": busy / span if span else 0.0}
 
 
-def duty_series(trace_dir: str, bucket_s: float = 0.1
-                ) -> Tuple[list, list]:
-    """(times, duty) series: per-bucket device busy fraction - the
-    utilization time series the reference's NVML sampler produced,
-    derived from the trace instead."""
-    paths = sorted(glob.glob(f"{trace_dir}/**/*.trace.json.gz",
-                             recursive=True))
-    with gzip.open(paths[-1]) as f:
-        tr = json.load(f)
-    events = tr.get("traceEvents", [])
-    lanes = set()
-    for e in events:
-        if (e.get("ph") == "M" and e.get("name") == "thread_name"
-                and e.get("args", {}).get("name") == "XLA Ops"):
-            lanes.add((e["pid"], e["tid"]))
-    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("ph") == "X"
-                and (e.get("pid"), e.get("tid")) in lanes)
-    if not iv:
-        return [], []
-    # merge to disjoint intervals first
-    merged = []
-    cs, ce = iv[0]
-    for s, t in iv[1:]:
-        if s > ce:
-            merged.append((cs, ce))
-            cs, ce = s, t
-        else:
-            ce = max(ce, t)
-    merged.append((cs, ce))
-    t0 = merged[0][0]
-    t1 = max(t for _, t in merged)
-    bus = bucket_s * 1e6
-    nb = max(1, int((t1 - t0) / bus) + 1)
-    acc = [0.0] * nb
-    for s, t in merged:
-        b0 = int((s - t0) / bus)
-        b1 = int((t - t0) / bus)
-        for b in range(b0, b1 + 1):
-            lo = t0 + b * bus
-            hi = lo + bus
-            acc[b] += max(0.0, min(t, hi) - max(s, lo))
-    times = [b * bucket_s for b in range(nb)]
-    duty = [min(1.0, a / bus) for a in acc]
-    return times, duty
+def device_busy(trace_dir: str) -> Dict[str, float]:
+    """busy_share of the GPU streams in the newest trace under
+    trace_dir."""
+    import jax
+
+    paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
+                      recursive=True)
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    data = jax.profiler.ProfileData.from_file(max(paths,
+                                                  key=os.path.getmtime))
+    return busy_share(device_intervals(data.planes))

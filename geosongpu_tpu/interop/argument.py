@@ -3,7 +3,7 @@
 Parity with /root/reference/src/tcn/py_ftn_interface/argument.py:17-98
 (YAML type names -> C types / Python hints / dim expressions, reserved-word
 sanitizing).  The MPI type of the reference becomes `mesh`: an opaque int
-handle (TPU runs single-process per host; the mesh is framework state, not
+handle (JAX runs one process per host; the mesh is framework state, not
 a communicator to translate - SURVEY.md SS2.9 item 5).
 """
 from __future__ import annotations

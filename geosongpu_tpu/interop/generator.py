@@ -3,14 +3,14 @@
 The reference's native-code centerpiece is a generated Fortran/C/CFFI
 bridge embedding CPython into the host executable
 (/root/reference/src/tcn/py_ftn_interface/bridge.py:64-184 + templates).
-The TPU equivalent generates, from the same YAML-shape interface spec:
+The JAX equivalent generates, from the same YAML-shape interface spec:
 
   {p}_bridge.h   C header: void {p}_{fn}(...) per function + validation
   {p}_bridge.c   CPython-embedding trampolines (Py_Initialize once, GIL
                  handling, pointer+shape marshaling - the CUDA dual-stream
                  staging of data_conversion.py:113-171 is unnecessary: the
                  Python side wraps host buffers zero-copy and JAX moves
-                 them to TPU on use)
+                 them to the device on use)
   {p}_bridge.py  dispatcher: zero-copy numpy views -> user hook
   {p}_hook.py    user-editable springboard (default: no-op / echo)
   {p}_interface.f90  Fortran bind(c) module + generated dual-execution
@@ -259,7 +259,7 @@ class Bridge:
             f'"""User hook for the {p} bridge - edit me.',
             "",
             "Arrays arrive as zero-copy numpy views of the host buffers;",
-            "convert with jnp.asarray to move to TPU, write results back",
+            "convert with jnp.asarray to move to the device, write results back",
             "into the views to return data to the host (the reference's",
             "hook.py.jinja2 contract).",
             '"""',

@@ -37,6 +37,7 @@ from ..physics import standalone as K
 from ..physics.held_suarez import HSLatitudes, held_suarez_forcing, \
     hs_latitudes
 from ..physics.thermo import CP_AIR, GRAV, HLV, RDGAS, qsat
+from .step import HoistedStep
 
 
 def sst_qobs(lat: jnp.ndarray) -> jnp.ndarray:
@@ -46,16 +47,13 @@ def sst_qobs(lat: jnp.ndarray) -> jnp.ndarray:
     return 273.16 + 27.0 * (1.0 - 0.5 * (x + x * x))
 
 
-_RUN_CACHE: dict = {}
-
-
 @dataclass(frozen=True)
 class AquaplanetModel:
     config: DycoreConfig
     grid: Grid
     ctx: DycoreContext
     lats: HSLatitudes
-    step_fn: Callable[[DycoreState], DycoreState]
+    step_fn: HoistedStep
     # the moist physics chain alone (surface fluxes -> shallow convection
     # -> microphysics -> radiative relaxation); exposed so the benchmark
     # phase tree can time it as its own leaf
@@ -77,22 +75,8 @@ class AquaplanetModel:
         return dataclasses.replace(state, q=q)
 
     def run(self, state: DycoreState, steps: int) -> DycoreState:
-        """Jitted with static `steps` and cached per count: the unjitted
-        form retraced the scan on every call, baking the metric/fill
-        constants into a fresh executable each time (measured: a
-        chunked 400-day climatology run leaked to 118 GB RSS)."""
-        key = (id(self), steps)
-        hit = _RUN_CACHE.get(key)
-        if hit is None:
-            def body(s, _):
-                return self.step_fn(s), None
-
-            fn = jax.jit(lambda s0: jax.lax.scan(
-                body, s0, None, length=steps)[0])
-            # keep a strong ref to self so its id cannot be recycled
-            _RUN_CACHE[key] = (self, fn)
-            hit = _RUN_CACHE[key]
-        return hit[1](state)
+        """`steps` model steps as one jitted scan (HoistedStep.run)."""
+        return self.step_fn.run(state, steps)
 
     def run_with_history(self, state: DycoreState, steps: int):
         def body(s, _):
@@ -150,16 +134,8 @@ def build_model(config: DycoreConfig) -> AquaplanetModel:
 
         # ---- microphysics ----------------------------------------------
         qi = jnp.zeros_like(ql)
-        if config.pallas_microphysics:
-            from ..ops.pallas.microphysics import gfdl_microphysics_pallas
-
-            interp = jax.default_backend() != "tpu"
-            t, qv, ql, qr, _, _precip = gfdl_microphysics_pallas(
-                t, qv, ql, qr, qi, p_mid, state.delp, dt, interpret=interp)
-        else:
-            mp = K.gfdl_microphysics(t, qv, ql, qr, qi, p_mid, state.delp,
-                                     dt)
-            t, qv, ql, qr = mp.t, mp.qv, mp.ql, mp.qr
+        mp = K.gfdl_microphysics(t, qv, ql, qr, qi, p_mid, state.delp, dt)
+        t, qv, ql, qr = mp.t, mp.qv, mp.ql, mp.qr
 
         # ---- radiative relaxation (HS-style, weak) ----------------------
         pt = t / pkz
@@ -168,11 +144,12 @@ def build_model(config: DycoreConfig) -> AquaplanetModel:
                                        lats_loc, config.ptop, dt)
         return dataclasses.replace(state, u=u, v=v, pt=pt, q=q)
 
-    def step(state: DycoreState) -> DycoreState:
+    def step(state: DycoreState, ctx_lats) -> DycoreState:
         from ..parallel.halo import symmetrize_shared_edges
 
-        state = fv_dynamics_step(state, ctx)
-        state = physics(state)
+        ctx_, lats_ = ctx_lats
+        state = fv_dynamics_step(state, ctx_)
+        state = physics(state, lats_)
         if config.edge_symmetrize:
             u, v = symmetrize_shared_edges(state.u, state.v)
             state = dataclasses.replace(state, u=u, v=v)
@@ -183,6 +160,6 @@ def build_model(config: DycoreConfig) -> AquaplanetModel:
         grid=grid,
         ctx=ctx,
         lats=lats,
-        step_fn=jax.jit(step),
+        step_fn=HoistedStep(step, (ctx, lats)),
         physics_fn=physics,
     )

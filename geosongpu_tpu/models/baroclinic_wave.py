@@ -46,6 +46,7 @@ from ..core.vertical import hybrid_coordinate, sigma_coordinate
 from ..core.topology import FACE_FRAMES, face_point
 from ..dycore.fv_dynamics import DycoreContext, build_context, \
     fv_dynamics_step
+from .step import HoistedStep
 
 # JW06 Table 1 parameters
 ETA0 = 0.252
@@ -221,37 +222,20 @@ def jw_initial_state(config: DycoreConfig, grid: Grid, ak: np.ndarray,
     ), np.asarray(phis)
 
 
-_RUN_CACHE: dict = {}
-
-
 @dataclass(frozen=True)
 class BaroclinicWaveModel:
     config: DycoreConfig
     grid: Grid
     ctx: DycoreContext
-    step_fn: Callable[[DycoreState], DycoreState]
+    step_fn: HoistedStep
     _init_builder: Callable
 
     def init(self, perturb: bool = True) -> DycoreState:
         return self._init_builder(perturb)
 
     def run(self, state: DycoreState, steps: int) -> DycoreState:
-        """Jitted with static `steps` and cached per count: the unjitted
-        form retraced the scan on every call, baking the metric/fill
-        constants into a fresh executable each time (measured: a
-        chunked 400-day climatology run leaked to 118 GB RSS)."""
-        key = (id(self), steps)
-        hit = _RUN_CACHE.get(key)
-        if hit is None:
-            def body(s, _):
-                return self.step_fn(s), None
-
-            fn = jax.jit(lambda s0: jax.lax.scan(
-                body, s0, None, length=steps)[0])
-            # keep a strong ref to self so its id cannot be recycled
-            _RUN_CACHE[key] = (self, fn)
-            hit = _RUN_CACHE[key]
-        return hit[1](state)
+        """`steps` model steps as one jitted scan (HoistedStep.run)."""
+        return self.step_fn.run(state, steps)
 
     def run_with_history(self, state: DycoreState, steps: int):
         def body(s, _):
@@ -279,10 +263,10 @@ def build_model(config: DycoreConfig) -> BaroclinicWaveModel:
                                  np.asarray(bk), perturb=perturb)
         return st
 
-    def step(state: DycoreState) -> DycoreState:
+    def step(state: DycoreState, ctx_) -> DycoreState:
         from ..parallel.halo import symmetrize_shared_edges
 
-        state = fv_dynamics_step(state, ctx)
+        state = fv_dynamics_step(state, ctx_)
         if config.edge_symmetrize:
             u, v = symmetrize_shared_edges(state.u, state.v)
             state = dataclasses.replace(state, u=u, v=v)
@@ -290,5 +274,5 @@ def build_model(config: DycoreConfig) -> BaroclinicWaveModel:
 
     return BaroclinicWaveModel(
         config=config, grid=grid, ctx=ctx,
-        step_fn=jax.jit(step), _init_builder=init_builder,
+        step_fn=HoistedStep(step, ctx), _init_builder=init_builder,
     )

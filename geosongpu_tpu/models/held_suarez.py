@@ -8,6 +8,7 @@ lax.scan run loop, all one XLA program.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
@@ -21,9 +22,7 @@ from ..core.state import DycoreState, init_state
 from ..core.vertical import hybrid_coordinate, sigma_coordinate
 from ..dycore.fv_dynamics import DycoreContext, build_context, fv_dynamics_step
 from ..physics.held_suarez import HSLatitudes, held_suarez_forcing, hs_latitudes
-
-
-_RUN_CACHE: dict = {}
+from .step import HoistedStep
 
 
 @dataclass(frozen=True)
@@ -32,7 +31,10 @@ class HeldSuarezModel:
     grid: Grid
     ctx: DycoreContext
     lats: HSLatitudes
-    step_fn: Callable[[DycoreState], DycoreState]
+    step_fn: HoistedStep
+    # the HS forcing alone, (state, lats) -> state; the sharded stepper
+    # (parallel/subtile.build_mesh_stepper) applies it per block
+    physics_fn: Callable = None
 
     def init(self, perturb: float = 1.0e-3, seed: int = 0) -> DycoreState:
         ak = np.asarray(self.ctx.ak)
@@ -41,24 +43,11 @@ class HeldSuarezModel:
                           seed=seed)
 
     def run(self, state: DycoreState, steps: int) -> DycoreState:
-        """Run `steps` model steps as one jitted scan.
-
-        Jitted with static `steps` and cached per count: the unjitted
-        form retraced the scan on every call, baking the metric/fill
-        constants into a fresh executable each time (measured: a
-        chunked 400-day climatology run leaked to 118 GB RSS)."""
-        key = (id(self), steps)
-        hit = _RUN_CACHE.get(key)
-        if hit is None:
-            def body(s, _):
-                return self.step_fn(s), None
-
-            fn = jax.jit(lambda s0: jax.lax.scan(
-                body, s0, None, length=steps)[0])
-            # keep a strong ref to self so its id cannot be recycled
-            _RUN_CACHE[key] = (self, fn)
-            hit = _RUN_CACHE[key]
-        return hit[1](state)
+        """Run `steps` model steps as one jitted scan, compiled once per
+        count (an unjitted scan retraced on every call and leaked a fresh
+        executable each time: 118 GB of host memory over a chunked
+        400-day climatology run)."""
+        return self.step_fn.run(state, steps)
 
     def run_with_history(self, state: DycoreState, steps: int,
                          every: int = 1):
@@ -85,23 +74,28 @@ def build_model(config: DycoreConfig) -> HeldSuarezModel:
     ctx = build_context(config, grid, ak, bk)
     lats = hs_latitudes(grid)
 
-    def step(state: DycoreState) -> DycoreState:
-        import dataclasses
+    def physics(state: DycoreState,
+                lats_loc: HSLatitudes = lats) -> DycoreState:
+        u, v, pt = held_suarez_forcing(
+            state.u, state.v, state.pt, state.delp, lats_loc, config.ptop,
+            config.dt)
+        return dataclasses.replace(state, u=u, v=v, pt=pt)
 
+    def step(state: DycoreState, ctx_lats) -> DycoreState:
         from ..parallel.halo import symmetrize_shared_edges
 
-        state = fv_dynamics_step(state, ctx)
-        u, v, pt = held_suarez_forcing(
-            state.u, state.v, state.pt, state.delp, lats, config.ptop,
-            config.dt)
+        ctx_, lats_ = ctx_lats
+        state = physics(fv_dynamics_step(state, ctx_), lats_)
         if config.edge_symmetrize:
-            u, v = symmetrize_shared_edges(u, v)
-        return dataclasses.replace(state, u=u, v=v, pt=pt)
+            u, v = symmetrize_shared_edges(state.u, state.v)
+            state = dataclasses.replace(state, u=u, v=v)
+        return state
 
     return HeldSuarezModel(
         config=config,
         grid=grid,
         ctx=ctx,
         lats=lats,
-        step_fn=jax.jit(step),
+        step_fn=HoistedStep(step, (ctx, lats)),
+        physics_fn=physics,
     )

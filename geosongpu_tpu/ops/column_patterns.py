@@ -1,4 +1,4 @@
-"""Column-stencil idiom catalog: the dsl_patterns recipes, TPU-native.
+"""Column-stencil idiom catalog: the dsl_patterns recipes, in jnp.
 
 The reference maintains an executable Do/Dont/Cant catalog of GT4Py/NDSL
 stencil idioms the physics needs (/root/reference/dsl_patterns/README.md:5-10)
@@ -59,7 +59,7 @@ def broadcast_bottom(q: jnp.ndarray) -> jnp.ndarray:
 def value_at_k(q: jnp.ndarray, k_index: jnp.ndarray) -> jnp.ndarray:
     """Per-column value at a spatially-varying absolute level k_index
     [..., 1 or scalar-per-column] (the reference's k-mask trick under a
-    FORWARD computation).  Mask+reduce instead of gather: one VPU pass."""
+    FORWARD computation).  Mask+reduce instead of gather: one fused pass."""
     K = q.shape[-1]
     ks = jax.lax.broadcasted_iota(jnp.int32, q.shape, q.ndim - 1)
     mask = ks == k_index[..., None] if k_index.ndim == q.ndim - 1 \

@@ -1,6 +1,6 @@
 """2-D flux-form transport operator (Lin & Rood 1996 directional splitting).
 
-The TPU equivalent of gtFV3's FvTp2d stencil chain (the reference CI only
+The JAX equivalent of gtFV3's FvTp2d stencil chain (the reference CI only
 *configures* that external code - GTFV3_BACKEND=dace:gpu,
 /root/reference/src/tcn/ci/pipeline/gtfv3_config.py:13; here we own it).
 

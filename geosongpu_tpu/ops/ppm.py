@@ -1,11 +1,11 @@
 """Piecewise-parabolic (PPM) finite-volume reconstruction & fluxes.
 
-TPU-native replacement for the GT4Py/DaCe stencils of the external gtFV3
+JAX replacement for the GT4Py/DaCe stencils of the external gtFV3
 dycore the reference CI drives (SURVEY.md SS0; backend config
 /root/reference/src/tcn/ci/pipeline/gtfv3_config.py:9-13).  Everything here
 is pure jnp on *padded* arrays [6, J, I, K] (layout: face, y, x, vertical;
 K minor so horizontal stencils vectorize across whole (x, K) tiles and XLA
-fuses the shifts into one VPU pass - no scalar loops, no dynamic shapes).
+fuses the shifts into one pass - no scalar loops, no dynamic shapes).
 
 Conventions
 -----------

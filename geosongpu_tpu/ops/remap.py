@@ -6,11 +6,11 @@ pe = ak + bk * ps.  The reference exposes exactly this contract through its
 bridge (`ak`/`bk`/`delp`/`pe`/`pk`/`peln`/`pkz` in
 /root/reference/src/tcn/py_ftn_interface/example_def_dycore.yaml:44-58).
 
-TPU-first design: the vertical index search is a *comparison-matrix count*
+Design: the vertical index search is a *comparison-matrix count*
 (K x K elementwise ops, fully vectorized over all columns - no
 searchsorted gathers with data-dependent trip counts), followed by
-`take_along_axis` of cumulative integrals.  K is the minor (lane) dim so
-all of this runs as wide VPU ops.
+`take_along_axis` of cumulative integrals.  K is the minor dim so all of
+this runs as wide elementwise ops.
 
 Arrays: [..., K] cell layers, [..., K+1] interfaces, TOA -> surface.
 """
@@ -78,10 +78,10 @@ def remap_field(q: jnp.ndarray, pe1: jnp.ndarray, pe2: jnp.ndarray,
     target interfaces pe2 (both [..., K+1], monotone increasing, same
     endpoints or pe2 within pe1's range).  Returns target means [..., K2].
 
-    TPU-first formulation: instead of searchsorted/gather (slow XLA gathers
-    on TPU), each (target l, source k) pair's *overlap* contribution is an
-    elementwise expression reduced over k - a fused broadcast+reduction on
-    the VPU with no materialized [K2, K1] tensor.  Each source layer's mass
+    Formulation: instead of searchsorted/gather, each (target l, source k)
+    pair's *overlap* contribution is an elementwise expression reduced
+    over k - a fused broadcast+reduction with no materialized [K2, K1]
+    tensor.  Each source layer's mass
     telescopes exactly across the targets, so conservation holds to
     roundoff of local terms (no top-of-column cumulative cancellation).
     """
@@ -121,11 +121,8 @@ def remap_fields_banded(qs, pe1: jnp.ndarray, pe2: jnp.ndarray,
 
     The overlap geometry (shifted interfaces, normalized integration
     bounds) depends only on the coordinates, so it is computed once and
-    applied to every field - at c192-L72 the per-field remap kernel is
-    ~10 ms/step and roughly half of it is geometry (measured round 5),
-    so remapping pt + tracers through one call nearly halves that.  A
-    single reciprocal per shift replaces the two divides (VPU divides
-    are multi-pass).
+    applied to every field.  A single reciprocal per shift replaces the
+    two divides.
 
     Returns a list of remapped fields, one per entry of qs.
     """

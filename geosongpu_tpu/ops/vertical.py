@@ -1,13 +1,10 @@
-"""Vertical-column primitives tuned for TPU.
+"""Vertical-column primitives.
 
-jnp.cumsum along the minor (K) axis lowers to an O(K^2) VPU
-reduce-window on TPU - measured 1.1 ms per call on [6,48,48,72] at
-c48-L72, several calls per step (pressure integrals, geopotential,
-omga).  A K-cumsum is a triangular MATMUL, and the MXU runs it at
-~180 TF/s f32: out[..., l] = sum_{k<=l} x[..., k] = x @ triu(1).
-
-These helpers are the required form for every vertical integral in the
-dycore; plain jnp.cumsum along K is a performance bug here.
+Every vertical integral in the dycore (pressure integrals, geopotential,
+omga) is a K-cumsum written as a triangular matmul:
+out[..., l] = sum_{k<=l} x[..., k] = x @ triu(1).  The goldens pin this
+form's rounding; whether jnp.cumsum or an associative scan is faster on
+the GPU at equal accuracy is open (measure before changing it).
 """
 from __future__ import annotations
 
@@ -16,11 +13,11 @@ import jax.numpy as jnp
 
 
 def cumsum_k(x: jnp.ndarray) -> jnp.ndarray:
-    """Inclusive forward cumsum along the last axis via MXU matmul.
+    """Inclusive forward cumsum along the last axis via a matmul.
 
-    precision=HIGHEST: the default TPU matmul precision decomposes f32
-    into bf16 passes - fine for ML weights, NOT for pressure integrals
-    (1e-2 relative error on pe would swamp the PGF)."""
+    precision=HIGHEST: a lower matmul precision (bf16 passes, or TF32 on
+    the GPU's tensor cores) is fine for ML weights, NOT for pressure
+    integrals (1e-3 relative error on pe would swamp the PGF)."""
     K = x.shape[-1]
     tri = jnp.triu(jnp.ones((K, K), x.dtype))
     return jax.lax.dot_general(

@@ -7,7 +7,7 @@ NDSL stack over OpenMPI/UCX/GDRCopy (SURVEY.md SS2.9 item 5,
 
 * single device: one XLA gather, fused into the surrounding program;
 * sharded (faces / subtiles on a mesh): the SPMD partitioner lowers the same
-  gather to collectives over ICI; a `shard_map` + `ppermute` fast path for
+  gather to collectives; a `shard_map` + `ppermute` fast path for
   face-sharded meshes lives in parallel/mesh.py.
 
 All functions are pure and jit-friendly; tables are closed over as constants.
@@ -29,7 +29,7 @@ class _BlockRecipe:
     """One halo block as a gather-free transform: take a rectangle of a
     neighbor face, optionally transpose/flip, write into the padded dest.
 
-    XLA gathers are slow on TPU; every edge/corner strip of the cubed
+    Every edge/corner strip of the cubed
     sphere is an *affine signed-permutation* image of a contiguous source
     rectangle, so slice+transpose+reverse (all fast, fusable ops) replace
     the gather entirely.  Recipes are derived from - and verified against -
@@ -307,8 +307,8 @@ def _block(field: jnp.ndarray, r) -> jnp.ndarray:
 def _apply_recipes(field: jnp.ndarray, recipes: List[_BlockRecipe],
                    n: int, h: int) -> jnp.ndarray:
     """field [6, n, n, ...] -> padded [6, N, N, ...] assembled by pure
-    concatenation (one output pass; sequential .at[].set updates cost a
-    full-array copy each on TPU)."""
+    concatenation (one output pass; sequential .at[].set updates would
+    each copy the full array)."""
     # (face, row-band, col-band) -> recipe; bands: 0 = S/W halo, 2 = N/E
     bands = {}
     for r in recipes:

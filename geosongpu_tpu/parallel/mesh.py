@@ -3,7 +3,7 @@
 The reference's parallel story is MPI domain decomposition configured by
 file-swapped layouts (SURVEY.md SS2.10) over an OpenMPI/UCX transport that
 is built and OSU-benchmarked in-repo (/root/reference/sw_stack/.../osu-bench.sh:15-86,
-results archived in results/mpi_gpu_rdma/24W7.json).  TPU-native mapping:
+results archived in results/mpi_gpu_rdma/24W7.json).  Mapping here:
 
 * `make_mesh(mesh_cfg)`: jax.sharding.Mesh over (face, y, x) axes - the
   cubed-sphere analog of NX x NY x 6 rank layouts;

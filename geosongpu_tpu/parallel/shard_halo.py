@@ -2,7 +2,7 @@
 
 The GSPMD path (parallel/halo.py under jit) lets XLA choose collectives
 for the concat-assembly's cross-face references - correct, but at scale it
-tends to all-gather whole faces.  This module is the ICI-native path the
+tends to all-gather whole faces.  This module is the ppermute path the
 reference's MPI halo exchange maps to (SURVEY.md SS2.10): each device owns
 one cube face and exchanges *only the strips*, via `lax.ppermute`, in
 

@@ -6,19 +6,19 @@ The reference decomposes each cube face into an NX x NY grid of MPI ranks
 ``node_setup=(NX, NY/6, ranks)`` in
 /root/reference/src/tcn/benchmark/geos_log_parser.py:40-58), and its halo
 exchange rides MPI point-to-point transport (SURVEY.md SS2.10).  This module
-is the TPU-native equivalent for arbitrary subtile meshes - the general
+is the JAX equivalent for arbitrary subtile meshes - the general
 case the face-only path (parallel/shard_halo.py, exactly 6 devices) cannot
 cover:
 
 * **faces-local layout** (``face_sharded=False``): a (Py, Px) device grid;
   every device holds the same (by, bx) block of ALL 6 faces.  Any device
-  count that factors (8 = 2 x 4, 4 = 2 x 2, ...) works - this is how an
-  8-chip TPU host runs with zero idle chips.
+  count that factors (8 = 2 x 4, 4 = 2 x 2, ...) works - this is how a
+  4-GPU host runs with no idle card.
 * **face-sharded layout** (``face_sharded=True``): a (6, Py, Px) grid; one
   device owns one block of one face - the reference's `6*NX*NY` rank
   layout (24, 54, 96 ... devices).
 
-Design (TPU-first, not an MPI translation): instead of per-neighbor
+Design (not an MPI translation): instead of per-neighbor
 pack/unpack branches, every exchange is compiled from *per-cell source
 maps* (core/topology.halo_spec - the same tables that drive the verified
 single-device fills):
@@ -737,11 +737,6 @@ def build_subtile_step(ctx, lay: SubtileLayout, mesh=None, lats=None,
     plan = build_subtile_plan(lay.n, lay.h, lay.py, lay.px,
                               lay.face_sharded)
     cfg = ctx.config
-    # both dycore backends shard: the fused Pallas substep kernels take
-    # rectangular (ny, nx) blocks and a local slot count F (sw_pallas
-    # _face_call grid=(F, K/kt)), so cfg.pallas_dycore runs per-block
-    # inside the shard_map exactly like the jnp path (gated equivalent on
-    # the virtual meshes in tests/test_subtile.py::test_sharded_pallas_*)
 
     spec = P(DEV_AXIS)
     from jax.sharding import NamedSharding
@@ -794,14 +789,9 @@ def build_subtile_step(ctx, lay: SubtileLayout, mesh=None, lats=None,
 
     if lats_st is None:
         lats_st = _put_stacked(np.zeros((lay.ndevices, 1)), sharding)
-    # check_vma=False: interpret-mode pallas_call (the CPU-mesh test/dryrun
-    # path of the fused dycore) evaluates its discharged jaxpr with
-    # non-varying internal scalars, which the vma checker rejects (mul of
-    # varying x non-varying); correctness is gated by the single-device
-    # equivalence tests instead (tests/test_subtile.py)
     step_sm = jax.jit(jax.shard_map(
         local_step, mesh=mesh, in_specs=(spec, spec, spec, spec),
-        out_specs=spec, check_vma=False))
+        out_specs=spec))
 
     def step(state_stacked):
         # metrics/lats ride as runtime args (jit constants would need the
@@ -835,7 +825,7 @@ def layout_from_mesh(mesh_cfg, npx: int, halo: int) -> SubtileLayout:
     face=6 is the reference's 6*NX*NY rank layout (one device owns one
     block of one face, held_suarez.py:142-218); face=1 is the faces-local
     layout (every device owns the same block of all 6 faces - fills
-    non-multiple-of-6 hosts with zero idle chips)."""
+    non-multiple-of-6 hosts with no idle device)."""
     if mesh_cfg.face not in (1, 6):
         raise ValueError(f"mesh.face must be 1 or 6, got {mesh_cfg.face}")
     return SubtileLayout(n=npx, h=halo, py=mesh_cfg.y, px=mesh_cfg.x,
@@ -849,24 +839,22 @@ def build_mesh_stepper(model, mesh_cfg, forcing):
     DycoreState onto the device mesh, `step` advances one model step on
     placed state, `unplace` recovers the global state for gates/archives.
     mesh_cfg None or 1 device: identity place/unplace around
-    model.step_fn.  Otherwise the subtile ppermute path - the layout is
+    model.step_fn.  A layout that needs more devices than the host has
+    raises ValueError.  Otherwise the subtile ppermute path - the layout is
     part of the experiment, not a side tool (the reference's layouts are
     config rows, /root/reference/src/tcn/ci/pipeline/held_suarez.py:272-377).
 
     The sharded step applies edge_symmetrize through the ppermute twin
     plan (SubtileFiller.symmetrize_dgrid), bit-matching the
     single-device numerics - sharded experiments need no config
-    divergence from the single-chip default."""
+    divergence from the single-device default."""
     if mesh_cfg is None or mesh_cfg.n_devices <= 1:
         return ((lambda s: s), model.step_fn, (lambda s: s),
                 "single-device")
     if len(jax.devices()) < mesh_cfg.n_devices:
-        # the declared layout outsizes this host (e.g. the c192 experiment
-        # declares 6 faces on a 1-chip dev box): run single-device and say
-        # so, like the reference's layout fallback rows
-        return ((lambda s: s), model.step_fn, (lambda s: s),
-                f"single-device (mesh {mesh_cfg.n_devices} devices "
-                f"declared, {len(jax.devices())} available)")
+        raise ValueError(
+            f"mesh layout needs {mesh_cfg.n_devices} devices, this host "
+            f"has {len(jax.devices())}")
     cfg = model.config
     lay = layout_from_mesh(mesh_cfg, cfg.npx, cfg.halo)
     step, place, unplace = build_subtile_step(

@@ -4,9 +4,9 @@ The reference validates seven OpenACC Fortran physics kernels against their
 serial builds at 0.01% (/root/reference/src/tcn/ci/pipeline/physics_standalone.py:13-146;
 kernel list :149-339: MoistRadCoup, GFDLMicrophysics, Buoyancy, CupGfSh,
 EvapSublPdfLoop, FillQ2Zero, AerActivation).  The Fortran sources live in
-external orphan branches, so these are TPU-native *re-derivations of the
+external orphan branches, so these are JAX *re-derivations of the
 same physical roles* using standard formulations - not ports.  Each kernel
-is a pure column function over [..., K] arrays (K minor => wide VPU ops;
+is a pure column function over [..., K] arrays (K minor => wide vector ops;
 vertical scans are lax scans/cumsums), jit- and vmap-friendly.
 
 Validation mirrors the reference's serial-vs-OACC gate: each kernel runs on

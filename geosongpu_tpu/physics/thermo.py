@@ -1,7 +1,7 @@
 """Moist thermodynamics helpers shared by the column kernels.
 
 Standard formulations (Tetens/Bolton saturation vapor pressure, latent
-heats); everything elementwise jnp so kernels fuse on the VPU.
+heats); everything elementwise jnp so XLA fuses it into the kernels.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Parity with the reference's Dash app (3 tabs - Difference / Reference /
 DSL - of heatmap grids over all variables of two datasets,
 /root/reference/src/tcn/plots/geos/dash_grid_heatmaps.py:76-136).  `dash`
-is not in the TPU image, so this renders the same three views as a static
+is not a dependency, so this renders the same three views as a static
 HTML page of embedded PNGs - artifact-friendly (attachable to CI runs),
 no server required.
 """

@@ -5,7 +5,7 @@ Capability parity with the reference's Dash app
 (Difference / Reference / Computed) served over HTTP from two dataset
 files, with a REGENERATE button that re-reads the files from disk and
 re-renders - the live-reload workflow the static exporter
-(plots/dashboard.py) cannot provide.  `dash` is not in the TPU image, so
+(plots/dashboard.py) cannot provide.  `dash` is not a dependency, so
 this is a stdlib http.server around the same unfolded-cube panel
 renderer; zero extra dependencies.
 

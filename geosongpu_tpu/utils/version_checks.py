@@ -1,9 +1,9 @@
 """Component-version drift checks.
 
 Parity with /root/reference/src/tcn/sw/geos_version_checks.py:10-58 (diffs
-components.yaml tag/branch pins between two GEOS branches over HTTP).  The
-TPU stack's pins live in Python packages, so this compares the *runtime
-stack fingerprint* (jax/jaxlib/libtpu/numpy versions + device kinds)
+components.yaml tag/branch pins between two GEOS branches over HTTP).  This
+stack's pins live in Python packages, so this compares the *runtime
+stack fingerprint* (jax/jaxlib/CUDA plugin/numpy versions + device kinds)
 against a recorded manifest and reports drift - same role: catch the
 software stack changing under the CI.
 """
@@ -24,11 +24,16 @@ def stack_fingerprint() -> Dict[str, str]:
         "numpy": numpy.__version__,
         "python": __import__("sys").version.split()[0],
     }
-    for pkg in ("jaxlib", "libtpu", "flax", "optax"):
+    for pkg in ("jaxlib", "flax", "optax"):
         try:
             out[pkg] = md.version(pkg)
         except md.PackageNotFoundError:
             pass
+    # JAX's CUDA plugin packages (jax-cuda12-plugin, jax-cuda12-pjrt, ...)
+    for dist in md.distributions():
+        name = dist.metadata["Name"] or ""
+        if name.lower().startswith("jax-cuda"):
+            out[name.lower()] = dist.version
     try:
         out["devices"] = ",".join(sorted({d.device_kind
                                           for d in jax.devices()}))

@@ -3,7 +3,7 @@
 The converter (serialbox_convert.py) is serializer-agnostic; on GPU
 hosts it injects the real `serialbox` python module
 (/root/reference/src/tcn/validation/serialbox/serialbox_dat_to_netcdf.py:75-79).
-TPU hosts have no serialbox build, so until round 3 the converter had
+This stack has no serialbox build, so until round 3 the converter had
 only ever been exercised against an in-memory fake - no actual bytes.
 
 This module closes that gap with a self-contained implementation of the

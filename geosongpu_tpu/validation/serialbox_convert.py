@@ -5,7 +5,7 @@ rank count from the model layout x 6 tiles (:91-93), per-savepoint output
 files, 1e40 sentinel -> 0 (:51), 3-cell tracer-halo trims for
 FVDynamics/Driver savepoints (:150-161), SERIALBOX_PYTHON gating (:75-79).
 
-Serialbox itself is a GPU-stack component absent on TPU hosts, so the
+Serialbox itself is a component of the reference's stack, absent here, so the
 import is gated exactly like the reference; the assembly logic is
 serializer-agnostic (dependency-injected) and unit-tested against a fake
 serializer so the converter is correct the day recorded GEOS savepoints

@@ -1,9 +1,14 @@
 #!/usr/bin/env python
-"""Run the BASELINE.md resolution ladder on the current backend and write
-one committed artifact (results/bench_ladder_r{N}.json).
+"""Run the BASELINE.md resolution ladder on the GPU and write one artifact
+(results/bench_ladder_r{N}.json).
 
 Ladder rungs (BASELINE.md "Config ladder" / primary-metric rows): c48-L72
-and c192-L72 Held-Suarez, fused Pallas path, grid-points/s/chip.  Mirrors
+and c192-L72 Held-Suarez, plain jnp/XLA path, grid-points/s per GPU.
+Each rung is one `bench.py` child process, run one after another: never
+run two at once (nor this script beside another JAX process on the same
+card), since each JAX process reserves most of the card's memory and two
+that compute at once spoil each other's times.  This parent process never
+imports JAX.  Mirrors
 the reference's benchmark matrix discipline (C180/C360 runs per backend,
 /root/reference/src/tcn/ci/pipeline/held_suarez.py:314-377) with the
 first (compile) step excluded, as the reference strips its JIT step
@@ -34,10 +39,10 @@ def run_rung(npx: int, npz: int, steps: int) -> dict:
     d = json.loads(line[-1])
     gps = d["value"]
     return {"config": f"c{npx}-L{npz}",
-            "gridpoints_per_s_per_chip": gps,
-            "ms_per_step": round(1e3 * 6 * npx * npx * npz / gps, 2),
+            "gridpoints_per_s_per_gpu": gps,
+            "ms_per_step": d["ms_per_step_median"],
             "ms_per_step_blocks": d.get("ms_per_step_blocks"),
-            "vs_round1_anchor": d.get("vs_baseline")}
+            "device": d.get("device")}
 
 
 def main():
@@ -52,14 +57,10 @@ def main():
     ap.add_argument("--rungs", default="48,192")
     args = ap.parse_args()
 
-    import jax
-
     entries = [run_rung(int(r), args.npz, args.steps)
                for r in args.rungs.split(",")]
     artifact = {
-        "backend": jax.default_backend(),
-        "devices": str(jax.devices()),
-        "path": "fused Pallas dycore (BENCH_PALLAS=1 default)",
+        "path": "plain jnp/XLA dycore",
         "entries": entries,
     }
     out = os.path.join(ROOT, args.out)

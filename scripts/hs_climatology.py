@@ -45,10 +45,7 @@ def main() -> int:
     from geosongpu_tpu.harness.checkpoint import enable_compilation_cache
     from geosongpu_tpu.models.held_suarez import build_model
 
-    try:
-        enable_compilation_cache()
-    except Exception:
-        pass
+    enable_compilation_cache()
 
     cfg = DycoreConfig(npx=args.npx, npz=args.npz, dt=args.dt, n_split=6)
     model = build_model(cfg)

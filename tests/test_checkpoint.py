@@ -1,3 +1,5 @@
+import os
+
 import numpy as np
 
 from geosongpu_tpu.core.config import DycoreConfig
@@ -26,3 +28,33 @@ def test_checkpoint_roundtrip(tmp_path):
     a = model.step_fn(restored)
     b = model.step_fn(s1)
     np.testing.assert_array_equal(np.asarray(a.pt), np.asarray(b.pt))
+
+
+def _cache_dir_after(monkeypatch, env_value):
+    import jax
+
+    from geosongpu_tpu.harness.checkpoint import enable_compilation_cache
+
+    if env_value is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_value)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = enable_compilation_cache()
+        return path, jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_follows_env_var(monkeypatch, tmp_path):
+    want = str(tmp_path / "xla_cache")
+    path, configured = _cache_dir_after(monkeypatch, want)
+    assert path == configured == want
+    assert os.path.isdir(want)
+
+
+def test_compile_cache_defaults_to_checkout(monkeypatch):
+    path, configured = _cache_dir_after(monkeypatch, None)
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert path == configured == os.path.join(checkout, ".jax_cache")

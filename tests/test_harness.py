@@ -53,20 +53,46 @@ def test_benchmark_record_roundtrip(tmp_path):
     assert abs(c["speedup_total_run"] - 1.0) < 1e-9
 
 
+# nvidia-smi --query-gpu=power.draw,memory.used,utilization.gpu
+#            --format=csv,noheader,nounits   on one H100, idle then loaded
+_SMI_LINES = [["71.23, 0, 0"], ["402.87, 61234, 97"], ["398.10, 61234, 100"]]
+
+
 def test_hws_sampler_and_energy(tmp_path):
     from geosongpu_tpu.hws.analysis import energy_envelope, load_data
     from geosongpu_tpu.hws.server import Sampler
 
-    s = Sampler(rate_s=0.01)
+    ticks = iter(_SMI_LINES * 7)
+    s = Sampler(rate_s=0.01, reader=lambda: next(ticks))
     for _ in range(20):
         s.sample_once()
     s.tick()
     path = s.dump(str(tmp_path))
     data = load_data(path)
     assert len(data["cpu_psu"]) == 20
+    assert data["gpu_psu"][1] == np.float64(402.87)
     rep = energy_envelope(data)
     assert rep.cpu_joules > 0
-    assert rep.total_kwh >= rep.cpu_kwh
+    # measured power integrated over 19 intervals of 0.01 s
+    assert abs(rep.gpu_joules - np.trapezoid(data["gpu_psu"], dx=0.01)) \
+        < 1e-9
+    assert rep.gpu_joules > 0.19 * 71.0
+    assert rep.total_kwh >= rep.cpu_kwh + rep.gpu_kwh - 1e-15
+
+
+def test_parse_recorded_nvidia_smi_lines():
+    from geosongpu_tpu.hws.server import parse_nvidia_smi
+
+    # four cards of one host: power and memory add, utilization averages
+    lines = ["402.87, 61234, 97", "398.10, 61000, 100",
+             "101.50, 1024, 3", "[N/A], 0, 0"]
+    power, mem, util = parse_nvidia_smi(lines[:3])
+    assert abs(power - 902.47) < 1e-9
+    assert mem == 61234 + 61000 + 1024
+    assert abs(util - 200.0 / 3) < 1e-9
+    assert np.isnan(parse_nvidia_smi(lines[3:])[0])
+    with pytest.raises(ValueError):
+        parse_nvidia_smi(["No devices were found"])
 
 
 def test_validation_analysis(tmp_path):
@@ -118,36 +144,30 @@ def test_sharded_experiment_dispatch(tmp_path):
     assert np.isfinite(np.asarray(state.u)).all()
 
 
-def test_hws_busy_probe_dips_when_idle():
-    """The round-3 verdict: TPU 'power' was a memory-in-use boolean that
-    never dipped.  The queue-probe duty estimate must read ~0 on an idle
-    device and rise while work is in flight."""
-    import jax
-    import jax.numpy as jnp
+def test_device_busy_share_of_synthetic_trace():
+    """The trace reduction on a hand-made plane list: union of the GPU
+    stream intervals (overlaps across streams counted once), host planes
+    and non-stream lines ignored; no device lane is an error."""
+    from types import SimpleNamespace as NS
 
-    from geosongpu_tpu.hws.server import Sampler
+    from geosongpu_tpu.hws.xprof_util import busy_share, device_intervals
 
-    s = Sampler(rate_s=0.005)
-    for _ in range(5):
-        s.sample_once()           # idle
-    idle = float(np.mean(s.data["tpu_busy"][-4:]))
-    assert idle < 0.25, s.data["tpu_busy"]
-
-    # keep the device busy with chained largeish matmuls, sample mid-flight
-    x = jnp.ones((1500, 1500), jnp.float32)
-    f = jax.jit(lambda a: a @ a / 1500.0)
-    y = f(x)
-    jax.block_until_ready(y)
-    busy_samples = []
-    for _ in range(6):
-        for _ in range(25):
-            y = f(y)              # queue async work
-        s.sample_once()           # probe queues behind it
-        busy_samples.append(s.data["tpu_busy"][-1])
-    jax.block_until_ready(y)
-    assert max(busy_samples) > 2.0 * max(idle, 0.02), (idle, busy_samples)
-    # and it dips again once the queue drains
-    for _ in range(3):
-        s.sample_once()
-    assert s.data["tpu_busy"][-1] < 0.5 * max(busy_samples), (
-        busy_samples, s.data["tpu_busy"][-3:])
+    ev = lambda start, dur: NS(start_ns=start, duration_ns=dur)
+    planes = [
+        NS(name="/host:CPU", lines=[
+            NS(name="python", events=[ev(0, 10_000)])]),
+        NS(name="/device:GPU:0", lines=[
+            NS(name="Stream #13(Compute)",
+               events=[ev(1_000, 2_000), ev(5_000, 1_000)]),
+            NS(name="Stream #14(MemcpyD2H)", events=[ev(2_500, 1_000)]),
+            NS(name="XLA Modules", events=[ev(1_000, 8_000)]),
+        ]),
+    ]
+    iv = device_intervals(planes)
+    assert iv == [(1_000, 3_000), (2_500, 3_500), (5_000, 6_000)]
+    got = busy_share(iv)
+    assert got["busy_s"] == 3_500 / 1e9      # [1000,3500] + [5000,6000]
+    assert got["span_s"] == 5_000 / 1e9
+    assert got["busy_share"] == 0.7
+    with pytest.raises(ValueError):
+        busy_share(device_intervals(planes[:1]))

@@ -110,10 +110,10 @@ def test_dycore_definition_generates(tmp_path):
     bridge = Bridge.from_yaml(src)
     files = bridge.write(str(tmp_path))
     assert any(n.endswith("_bridge.c") for n in files)
-    c = (tmp_path / "geos_tpufv3_bridge.c").read_text()
-    assert "geos_tpufv3_run" in c and "validate_run" in c
+    c = (tmp_path / "geos_jaxfv3_bridge.c").read_text()
+    assert "geos_jaxfv3_run" in c and "validate_run" in c
     # the full reference state vector must be in the run signature
-    h = (tmp_path / "geos_tpufv3_bridge.h").read_text()
+    h = (tmp_path / "geos_jaxfv3_bridge.h").read_text()
     for var in ("u", "v", "w", "delz", "pt", "delp", "q", "ps", "pe", "pk",
                 "peln", "pkz", "phis", "q_con", "omga", "ua", "va", "uc",
                 "vc", "mfx", "mfy", "cx", "cy", "diss_est"):

@@ -121,7 +121,7 @@ def test_f90_dycore_definition_generates(tmp_path):
     src = os.path.join(os.path.dirname(__file__), "..", "geosongpu_tpu",
                        "interop", "def_dycore.yaml")
     Bridge.from_yaml(src).write(str(tmp_path))
-    f90 = (tmp_path / "geos_tpufv3_interface.f90").read_text()
+    f90 = (tmp_path / "geos_jaxfv3_interface.f90").read_text()
     for var in ("u", "v", "w", "delz", "pt", "delp", "ps", "pe", "pk",
                 "peln", "pkz", "phis", "omga", "ua", "va", "uc", "vc",
                 "mfx", "mfy"):

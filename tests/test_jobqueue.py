@@ -2,17 +2,14 @@
 
 Reference behavior under test: submit -> poll-until-terminal -> surface
 failures (/root/reference/src/tcn/ci/utils/shell.py:86-100).  The local
-backend runs real detached processes; the queued-resource backend runs
-against an injected fake gcloud runner (the serializer-injection test
-pattern)."""
-import json
+backend runs real detached processes; the poll loop also runs against a
+scripted fake backend (the serializer-injection test pattern)."""
 import time
 
 import pytest
 
-from geosongpu_tpu.harness.jobqueue import (JobQueueError, JobState,
-                                            LocalBackend,
-                                            QueuedResourceBackend,
+from geosongpu_tpu.harness.jobqueue import (JobHandle, JobQueueError,
+                                            JobState, LocalBackend,
                                             wait_for_job)
 
 
@@ -42,55 +39,40 @@ def test_local_backend_timeout_cancels(tmp_path):
     assert be.state(h) in (JobState.FAILED, JobState.COMPLETED)
 
 
-class _FakeGcloud:
-    """State-machine fake: PROVISIONING x2 -> ACTIVE x2 -> deleted."""
+class _ScriptedBackend:
+    """Fake backend: replays a scripted state sequence, records cancels."""
 
-    def __init__(self):
-        self.calls = []
-        self._describes = 0
+    name = "scripted"
 
-    def __call__(self, cmd):
-        self.calls.append(cmd)
-        verb = cmd[4]
-        if verb == "create":
-            assert "--metadata" in cmd
-            return "{}"
-        if verb == "describe":
-            self._describes += 1
-            if self._describes <= 2:
-                return json.dumps({"state": {"state": "PROVISIONING"}})
-            if self._describes <= 4:
-                return json.dumps({"state": {"state": "ACTIVE"}})
-            raise JobQueueError("NOT_FOUND")  # deleted after completion
-        if verb == "delete":
-            return "{}"
-        raise AssertionError(cmd)
+    def __init__(self, states):
+        self.states = list(states)
+        self.cancelled = []
+
+    def submit(self, commands, job_name="job"):
+        return JobHandle(job_id=f"{job_name}-1", backend=self.name)
+
+    def state(self, h):
+        return self.states.pop(0) if len(self.states) > 1 else self.states[0]
+
+    def cancel(self, h):
+        self.cancelled.append(h.job_id)
 
 
-def test_queued_resource_lifecycle():
-    fake = _FakeGcloud()
-    be = QueuedResourceBackend("proj", "us-central1-a", runner=fake)
+def test_wait_for_job_polls_through_pending_and_running():
+    be = _ScriptedBackend([JobState.PENDING, JobState.PENDING,
+                           JobState.RUNNING, JobState.COMPLETED])
     h = be.submit(["python bench.py"], "hsrun")
-    assert h.job_id.startswith("hsrun-")
-    assert be.state(h) == JobState.PENDING     # PROVISIONING
-    assert be.state(h) == JobState.PENDING
-    assert be.state(h) == JobState.RUNNING     # ACTIVE
-    st = wait_for_job(be, h, poll_s=0.01, timeout_s=10)
-    assert st == JobState.COMPLETED            # describe -> NOT_FOUND
-    create = fake.calls[0]
-    assert create[:5] == ["gcloud", "compute", "tpus", "queued-resources",
-                          "create"]
-    assert any("startup-script=python bench.py" in c for c in create)
+    assert wait_for_job(be, h, poll_s=0.01, timeout_s=10) == \
+        JobState.COMPLETED
+    assert be.states == [JobState.COMPLETED] and not be.cancelled
 
 
-def test_queued_resource_failed_state():
-    class _FailFake(_FakeGcloud):
-        def __call__(self, cmd):
-            self.calls.append(cmd)
-            if cmd[4] == "describe":
-                return json.dumps({"state": {"state": "FAILED"}})
-            return "{}"
-
-    be = QueuedResourceBackend("proj", "z", runner=_FailFake())
+def test_wait_for_job_surfaces_failed_state_and_timeout():
+    be = _ScriptedBackend([JobState.PENDING, JobState.FAILED])
     h = be.submit(["exit 1"], "bad")
     assert wait_for_job(be, h, poll_s=0.01, timeout_s=5) == JobState.FAILED
+    stuck = _ScriptedBackend([JobState.RUNNING])
+    h = stuck.submit(["sleep 100"], "stuck")
+    with pytest.raises(JobQueueError, match="timed out"):
+        wait_for_job(stuck, h, poll_s=0.01, timeout_s=0.05)
+    assert stuck.cancelled == [h.job_id]

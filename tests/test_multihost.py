@@ -3,7 +3,7 @@ processes).
 
 Round-2 verdict: the launcher emitted jax.distributed env that had never
 been exercised.  Here two REAL processes initialize through the exact env
-keys `TPUJobConfig.launch_env` emits (harness/launcher.py:49-57), form an
+keys `GPUJobConfig.launch_env` emits (harness/launcher.py:49-57), form an
 8-device global mesh (4 virtual CPU devices per process), run the subtile
 ppermute sharded step, and each process verifies its own shards against a
 single-device reference.  Reference analog: multi-node runs were only
@@ -16,7 +16,7 @@ import sys
 
 import pytest
 
-from geosongpu_tpu.harness.launcher import TPUJobConfig
+from geosongpu_tpu.harness.launcher import GPUJobConfig
 
 _SUBPROC = """
 import os
@@ -74,7 +74,7 @@ def test_two_process_distributed_step(tmp_path):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    job = TPUJobConfig(hosts=2, chips_per_host=4,
+    job = GPUJobConfig(hosts=2, gpus_per_host=4,
                        coordinator=f"localhost:{port}")
     procs = []
     for pid in range(2):

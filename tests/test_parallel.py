@@ -22,7 +22,7 @@ def test_face_sharded_step_matches_single_device():
 
     mesh = make_mesh(MeshConfig(face=6, y=1, x=1))
     sst = shard_state(mesh, st)
-    out = jax.jit(model.step_fn.__wrapped__)(sst)
+    out = jax.jit(model.step_fn.apply)(sst, model.step_fn.arrays)
 
     np.testing.assert_allclose(np.asarray(out.delp), np.asarray(ref.delp),
                                rtol=2e-6, atol=2e-6)
@@ -36,7 +36,7 @@ def test_mixed_mesh_step_runs():
     st = model.init(perturb=0.01)
     mesh = make_mesh(MeshConfig(face=2, y=2, x=2))
     sst = shard_state(mesh, st)
-    out = jax.jit(model.step_fn.__wrapped__)(sst)
+    out = jax.jit(model.step_fn.apply)(sst, model.step_fn.arrays)
     assert bool(jnp.isfinite(out.pt).all())
 
 

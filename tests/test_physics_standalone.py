@@ -139,15 +139,16 @@ def test_microphysics_ice_processes(cols):
 
 def test_all_seven_kernels_dual_build_gate():
     """The reference's serial-vs-OACC 0.01% contract
-    (physics_standalone.py:132-144): jnp/XLA build vs Pallas build for
-    every kernel on one dataset (the task runs 5)."""
+    (physics_standalone.py:132-144): CPU build vs default-device build
+    (independent twin where one exists) for every kernel on one dataset
+    (the task runs 5)."""
     from geosongpu_tpu.harness.tasks.physics_standalone import (
-        KERNELS, _datasets, _run_kernel, _run_kernel_pallas)
+        KERNELS, _datasets, _run_kernel, _run_kernel_device)
 
     data = _datasets(seed=7)
     for name in KERNELS:
         ref = _run_kernel(name, data)
-        opt = _run_kernel_pallas(name, data)
+        opt = _run_kernel_device(name, data)
         assert set(ref) == set(opt)
         for var in ref:
             a = ref[var].astype(np.float64)

@@ -3,7 +3,7 @@ import time
 
 import pytest
 
-from geosongpu_tpu.harness.launcher import TPUJobConfig
+from geosongpu_tpu.harness.launcher import GPUJobConfig
 from geosongpu_tpu.harness.shell import ShellScript, ShellScriptError, \
     run_subprocess
 
@@ -34,12 +34,12 @@ def test_shellscript_detached_and_poll(tmp_path):
 
 
 def test_job_config_layouts_and_env():
-    one = TPUJobConfig.one_chip()
-    assert one.total_chips == 1
-    host = TPUJobConfig.one_host_v5e8()
-    assert host.total_chips == 8
-    two = TPUJobConfig.two_hosts_v5p()
-    assert two.total_chips == 8
+    one = GPUJobConfig.one_gpu()
+    assert one.total_gpus == 1
+    host = GPUJobConfig.one_host_4gpu()
+    assert host.total_gpus == 4
+    two = GPUJobConfig.two_hosts_4gpu()
+    assert two.total_gpus == 8
     env = two.launch_env(process_id=1)
     assert env["JAX_NUM_PROCESSES"] == "2"
     assert env["JAX_PROCESS_ID"] == "1"
@@ -48,7 +48,7 @@ def test_job_config_layouts_and_env():
 
 
 def test_wrapper_script_brackets_with_sampler(tmp_path):
-    cfg = TPUJobConfig(hosts=1, chips_per_host=1, hardware_sampling=True)
+    cfg = GPUJobConfig(hosts=1, gpus_per_host=1, hardware_sampling=True)
     script = cfg.wrapper_script(["echo payload"], name="wrap",
                                 wd=str(tmp_path))
     content = open(script.path).read()

@@ -1,7 +1,7 @@
 """External ground truth for the moist thermodynamics.
 
 Every other physics gate in this framework compares two same-author
-implementations (jnp vs Pallas twins); this one anchors the saturation
+implementations (primaries vs physics/twins.py); this one anchors the saturation
 vapor pressure - the quantity every moist process (surface evaporation,
 saturation adjustment, WBF, rain evaporation) keys off - against
 PUBLISHED laboratory/standard values from outside this repository:
